@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port ``cp2_tpu_torch`` on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. device   require CUDA, print the card's name and power limit, turn TF32
+            off for matrix products and convolutions (the comparisons
+            below are in full float32);
+2. build    compile every kernel of the path from ``cp2_tpu_torch/csrc``
+            with nvcc for sm_90a, one nvcc per source, all at once;
+3. kernels  the dense-pair-loss kernels against their plain PyTorch
+            versions, forward value, dq and dk, float32 and bfloat16
+            operands, temperatures 1.0 and 0.2, at the CP2 step's shape
+            and four more; kernel and plain times at each shape;
+4. small    one CP2 step of a narrow model on the card against the same
+            step on the CPU, where the dense loss takes its plain version;
+5. step     the full-width CP2 pretrain step (dilated ResNet-50 + ASPP-512,
+            contrast dim 128, queue 65536, 224x224, batch 32, bfloat16
+            model) through ``create_pretrain_state`` and
+            ``make_pretrain_step``: 2 warm-up and 5 timed steps, the launch
+            counts of the kernels over those 7 steps, and the kernel held
+            against the plain version on the step's own dense features.
+
+The last lines are one JSON object on the kernels, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+SHAPES = [(32, 196, 128), (8, 1024, 128), (2, 4096, 128), (1, 100, 8), (1, 640, 16)]
+STEP_SHAPE = SHAPES[0]  # (N, S², C) of the CP2 step at 224², batch 32
+TEMPS = (1.0, 0.2)
+F32_TOL = {"loss_rtol": 2e-5, "grad_rtol": 1e-4}  # tests/test_pallas_dense_loss.py
+BF16_RTOL = 2e-2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_rel(ours: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |ours - ref| over max |ref| (normwise relative error)."""
+    return float((ours.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def dense_inputs(n, s2, c, seed, device="cuda"):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn(n, s2, c, generator=g), dim=-1)
+    k = torch.nn.functional.normalize(torch.randn(n, s2, c, generator=g), dim=-1)
+    a = (torch.rand(n, s2, generator=g) > 0.5).float()
+    b = (torch.rand(n, s2, generator=g) > 0.5).float()
+    a[:, 0] = 1.0
+    b[:, 0] = 1.0
+    return [t.to(device) for t in (q, k, a, b)]
+
+
+def dense_work(n, s2, c):
+    """(bytes, operations) each kernel must move and do, float32 operands.
+
+    Forward: read q, k and both masks, write lse and the loss; the
+    similarities, 2·N·S⁴·C.  Backward as the step runs it (dq only): read
+    q, k, the masks, lse and the upstream gradient, write dq; the
+    similarities again and their product with k, 2 · 2·N·S⁴·C.
+    """
+    qk, masks, lse = 2 * n * s2 * c * 4, 2 * n * s2 * 4, n * s2 * 4
+    sim = 2 * n * s2 * s2 * c
+    return (qk + masks + lse + 4, sim), (qk + masks + lse + 4 + n * s2 * c * 4, 2 * sim)
+
+
+def bound_ms(nbytes, flops):
+    """The least time for the work, and what sets it, float32 operands."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernels(dl):
+    """Every shape, temperature and operand type, then the times at each
+    shape; returns the step shape's float32 numbers for the JSON line."""
+    flagship = {}
+    for (n, s2, c) in SHAPES:
+        q, k, a, b = dense_inputs(n, s2, c, seed=s2 + c)
+        for dtype in (torch.float32, torch.bfloat16):
+            for temp in TEMPS:
+                qg, kg = (x.detach().clone().requires_grad_() for x in (q, k))
+                loss = dl.dense_pair_loss(qg, kg, a, b, temp, compute_dtype=dtype)
+                loss.backward()
+                torch.cuda.synchronize()
+                # the plain version on the same (rounded) operands, float32
+                qr, kr = (x.to(dtype).float().detach().clone().requires_grad_()
+                          for x in (q, k))
+                ref = dl.dense_pair_loss_reference(qr, kr, a, b, temp)
+                ref.backward()
+                err_loss = abs(loss.item() - ref.item()) / abs(ref.item())
+                err_dq, err_dk = max_rel(qg.grad, qr.grad), max_rel(kg.grad, kr.grad)
+                if dtype == torch.float32:
+                    ok = (err_loss <= F32_TOL["loss_rtol"]
+                          and max(err_dq, err_dk) <= F32_TOL["grad_rtol"])
+                else:
+                    ok = max(err_loss, err_dq, err_dk) <= BF16_RTOL
+                abs_fwd = abs(loss.item() - ref.item())
+                abs_bwd = max(float((qg.grad - qr.grad).abs().max()),
+                              float((kg.grad - kr.grad).abs().max()))
+                log(f"  check N={n} S2={s2} C={c} {str(dtype)[6:]:8s} T={temp}: "
+                    f"loss rel {err_loss:.2e}  dq {err_dq:.2e}  dk {err_dk:.2e}  "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"kernel disagrees with the plain version at "
+                                     f"{(n, s2, c)} {dtype} T={temp}")
+                if (n, s2, c) == STEP_SHAPE and dtype == torch.float32:
+                    flagship["fwd_abs"] = max(flagship.get("fwd_abs", 0.0), abs_fwd)
+                    flagship["bwd_abs"] = max(flagship.get("bwd_abs", 0.0), abs_bwd)
+        # times, float32 operands, T = 1
+        ops = dl.prepare_operands(q, k, a, b, torch.float32)
+        _, lse = dl.fwd_kernel(*ops, 1.0)
+        g = torch.ones((), device="cuda")
+        t = {
+            "fwd_ms": cuda_ms(lambda: dl.fwd_kernel(*ops, 1.0)),
+            "fwd_plain_ms": cuda_ms(lambda: dl.dense_pair_loss_reference(q, k, a, b, 1.0)),
+            # the step's backward: dq only (the keys carry no gradient)
+            "bwd_ms": cuda_ms(lambda: dl.bwd_kernel(*ops, lse, g, 1.0, need_dk=False)),
+            "bwd_plain_ms": cuda_ms(
+                lambda: dl.dense_pair_loss_backward(q, k, a, b, lse, 1.0)),
+        }
+        fwd_work, bwd_work = dense_work(n, s2, c)
+        t["fwd_bound_ms"], t["fwd_bound_by"] = bound_ms(*fwd_work)
+        t["bwd_bound_ms"], t["bwd_bound_by"] = bound_ms(*bwd_work)
+        log(f"  time  N={n} S2={s2} C={c} float32: fwd kernel {t['fwd_ms']:.4f} ms "
+            f"plain {t['fwd_plain_ms']:.4f} ms bound {t['fwd_bound_ms']:.4f} ms "
+            f"({t['fwd_bound_by']}) | bwd(dq) kernel {t['bwd_ms']:.4f} ms plain "
+            f"{t['bwd_plain_ms']:.4f} ms bound {t['bwd_bound_ms']:.4f} ms "
+            f"({t['bwd_bound_by']})")
+        if (n, s2, c) == STEP_SHAPE:
+            flagship.update(t)
+    return flagship
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the CP2 pretrain step
+# ---------------------------------------------------------------------------
+
+def pre_augmented_batch(batch, hw, seed, device):
+    """The pre-augmented batch of ``bench.py`` (``BENCH_NO_AUG=1``)."""
+    r = np.random.RandomState(seed)
+    ids = np.tile(np.arange(1, hw * hw + 1, dtype=np.int32).reshape(1, hw, hw),
+                  (batch, 1, 1))
+    bg = r.rand(batch, hw, hw, 3).astype(np.float32)
+    bg[:, hw // 4: 3 * hw // 4, hw // 4: 3 * hw // 4, :] = 0.0
+    raw = {
+        "img_a": r.rand(batch, hw, hw, 3).astype(np.float32),
+        "img_b": r.rand(batch, hw, hw, 3).astype(np.float32),
+        "bg0": bg,
+        "bg1": bg.copy(),
+        "pixel_ids_a": ids,
+        "pixel_ids_b": ids,
+        "region_ids_a": ids,
+        "region_ids_b": ids,
+    }
+    return {key: torch.from_numpy(v).to(device) for key, v in raw.items()}
+
+
+SMALL_MODEL = dict(
+    type="EncoderDecoder",
+    backbone=dict(type="ResNet", depth=50, stem_channels=8, base_channels=8,
+                  num_stages=4, out_indices=(0, 1, 2, 3), dilations=(1, 1, 1, 2),
+                  strides=(1, 2, 2, 1), norm_cfg=dict(type="BN"),
+                  contract_dilation=True),
+    decode_head=dict(type="ASPPHead", in_channels=256, in_index=3, channels=16,
+                     contrast=True, contrast_dim=16, dilations=(1, 6, 12, 18),
+                     num_classes=2, norm_cfg=dict(type="BN")),
+)
+
+
+def small_step_cuda_vs_cpu():
+    """One float32 step of a narrow model from one seed on both devices."""
+    from cp2_tpu_torch.ssl import SSLEncoder, SSLHyperParams, create_pretrain_state
+    from cp2_tpu_torch.ssl import output_stride_of
+    from cp2_tpu_torch.ssl.train_step import make_optimizer, make_pretrain_step
+    from cp2_tpu_torch.types import PretrainType
+
+    hp = SSLHyperParams.for_variant(PretrainType.CP2, dim=16, queue_len=64)
+    out = {}
+    for device in ("cpu", "cuda"):
+        state = create_pretrain_state(SSLEncoder(SMALL_MODEL, dim=16),
+                                      make_optimizer("sgd", 1e-3), hp, seed=0,
+                                      device=device)
+        step = make_pretrain_step(hp, output_stride_of(SMALL_MODEL))
+        state, metrics = step(state, pre_augmented_batch(2, 64, 0, device))
+        out[device] = (metrics["loss"].item(),
+                       {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+                       state.queue.cpu())
+    (l_cpu, sd_cpu, q_cpu), (l_gpu, sd_gpu, q_gpu) = out["cpu"], out["cuda"]
+    err_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    err_state = max(max_rel(sd_gpu[k], sd_cpu[k]) for k in sd_cpu if sd_cpu[k].abs().max() > 0)
+    err_queue = max_rel(q_gpu, q_cpu)
+    log(f"  small step, cuda vs cpu: loss {l_gpu:.6f} vs {l_cpu:.6f} (rel {err_loss:.2e}), "
+        f"state max rel {err_state:.2e}, queue max rel {err_queue:.2e}")
+    # float32 on both; cuDNN and MKL sum in other orders: 1e-4 normwise
+    if not (err_loss <= 1e-4 and err_state <= 1e-4 and err_queue <= 1e-4):
+        raise SystemExit("the CP2 step on the card disagrees with the CPU step")
+
+
+def dense_features(state, batch, output_stride):
+    """The step's q_dense / k_dense / masks, formed as ``cp2_objective``
+    forms them, for the current state."""
+    from cp2_tpu_torch.ops.losses import l2_normalize
+    from cp2_tpu_torch.ssl.objectives import (
+        composite_foreground, cp2_key_forward, subsample_grid)
+
+    img_a, mask_a = composite_foreground(batch["img_a"], batch["bg0"])
+    _, mask_b = composite_foreground(batch["img_b"], batch["bg1"])
+    n = img_a.shape[0]
+    with torch.no_grad():
+        q_out = state.model.dense(img_a)
+        k_out = cp2_key_forward(state.ema_model, batch)
+    s2 = q_out.shape[1] * q_out.shape[2]
+    q = l2_normalize(q_out.reshape(n, s2, -1).float())
+    k = l2_normalize(k_out.reshape(n, s2, -1).float())
+    a = subsample_grid(mask_a, output_stride).reshape(n, -1)
+    b = subsample_grid(mask_b, output_stride).reshape(n, -1)
+    return q, k, a, b
+
+
+def full_step(dl):
+    from cp2_tpu_torch.config import Config
+    from cp2_tpu_torch.ssl import SSLEncoder, SSLHyperParams, create_pretrain_state
+    from cp2_tpu_torch.ssl import output_stride_of
+    from cp2_tpu_torch.ssl.train_step import make_optimizer, make_pretrain_step
+    from cp2_tpu_torch.types import BackboneType, PretrainType
+    import cp2_tpu_torch
+
+    batch_size, hw = 32, 224
+    cfg = Config.fromfile(os.path.join(os.path.dirname(cp2_tpu_torch.__file__),
+                                       "configs", "config_pretrain.py"))
+    model_cfg = dict(cfg.model)
+    hp = SSLHyperParams.for_variant(PretrainType.CP2)  # dim 128, queue 65536
+    model = SSLEncoder(model_cfg, pretrain_type=PretrainType.CP2,
+                       backbone_type=BackboneType.DEEPLABV3, dim=128,
+                       dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    state = create_pretrain_state(model, make_optimizer("sgd", 1e-3), hp, seed=0)
+    os_ = output_stride_of(model_cfg)
+    step = make_pretrain_step(hp, os_, augment_fn=None)
+    batch = pre_augmented_batch(batch_size, hw, 0, "cuda")
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"  state: {n_params} params, queue {tuple(state.queue.shape)}, output "
+        f"stride {os_}, built in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dl.reset_launch_counts()  # the main path's run starts here
+    losses, times = [], []
+    for i in range(7):
+        ptr = state.queue_ptr
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = metrics["loss"].item()  # synchronises
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+        if not math.isfinite(loss):
+            raise SystemExit(f"step {i}: loss {loss}")
+        if state.queue_ptr != (ptr + batch_size) % hp.queue_len:
+            raise SystemExit(f"step {i}: queue_ptr {ptr} -> {state.queue_ptr}")
+    launches = dict(dl.LAUNCHES)  # read just after the run
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses {['%.5f' % l for l in losses]}")
+    log(f"  step ms {['%.2f' % t for t in times]}")
+    for name, count in launches.items():
+        if count != 7:
+            raise SystemExit(f"{name} launched {count} times in 7 steps, want 7")
+    med = statistics.median(times[2:])
+    ips = batch_size / med * 1e3
+    log(f"  launches over 7 steps: {launches}")
+    log(f"  median of 5 timed steps {med:.2f} ms, {ips:.1f} images/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, on {gpu_line()}")
+
+    # the kernel against the plain version on the step's own features
+    q, k, a, b = dense_features(state, batch, os_)
+    if tuple(q.shape) != STEP_SHAPE:
+        raise SystemExit(f"dense features {tuple(q.shape)}, want {STEP_SHAPE}")
+    qg = q.detach().clone().requires_grad_()
+    loss = dl.dense_pair_loss(qg, k, a, b, hp.dense_logits_temp)
+    loss.backward()
+    qr = q.detach().clone().requires_grad_()
+    ref = dl.dense_pair_loss_reference(qr, k, a, b, hp.dense_logits_temp)
+    ref.backward()
+    err_loss = abs(loss.item() - ref.item()) / abs(ref.item())
+    err_dq = max_rel(qg.grad, qr.grad)
+    log(f"  step features: kernel loss {loss.item():.6f} plain {ref.item():.6f} "
+        f"(rel {err_loss:.2e}), dq max rel {err_dq:.2e}")
+    if err_loss > F32_TOL["loss_rtol"] or err_dq > F32_TOL["grad_rtol"]:
+        raise SystemExit("kernel disagrees with the plain version on the step's features")
+    return launches, dict(median_step_ms=med, images_per_s=ips, peak_bytes=peak,
+                          losses=losses, step_ms=times)
+
+
+def main() -> int:
+    # phase 1: device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    from cp2_tpu_torch.ops import cuda_build
+    from cp2_tpu_torch.ops import dense_loss as dl
+
+    card = gpu_line()
+    log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
+        f"{card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("TF32 off for matrix products and convolutions: every float32 "
+        "comparison below is in full float32")
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    built = cuda_build.build(["dense_loss"])
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    os.makedirs("chiprun_out", exist_ok=True)
+    for name, info in built.items():
+        log(f"  {name}: nvcc {info['seconds']:.1f} s")
+        with open(os.path.join("chiprun_out", f"ptxas_{name}.txt"), "w") as f:
+            f.write(info["log"])
+        regs = sorted({line.split("Used ")[1].split(" registers")[0]
+                       for line in info["log"].splitlines() if "registers" in line})
+        spills = [line for line in info["log"].splitlines()
+                  if "spill" in line and " 0 bytes spill stores" not in line]
+        log(f"    registers per thread across instantiations: {', '.join(regs)}; "
+            f"{len(spills)} with spills (ptxas log in chiprun_out/)")
+
+    # phase 3: kernels against their plain versions
+    log("kernels vs plain:")
+    dl.reset_launch_counts()
+    flagship = check_kernels(dl)
+
+    # phase 4: a narrow step on the card against the CPU
+    log("small step:")
+    small_step_cuda_vs_cpu()
+
+    # phase 5: the full-width CP2 step
+    log("full-width CP2 step:")
+    launches, step = full_step(dl)
+    with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
+        json.dump({"card": card, **step}, f, indent=1)
+
+    kernels = [
+        {"name": "dense_pair_loss_fwd", "route": "cuda",
+         "source": "cp2_tpu_torch/csrc/dense_loss.cu",
+         "replaces": "cp2_tpu/ops/pallas/dense_loss.py:77",
+         "launches": launches["dense_pair_loss_fwd"],
+         "max_abs_err": flagship["fwd_abs"], "ms": flagship["fwd_ms"],
+         "plain_ms": flagship["fwd_plain_ms"], "bound_ms": flagship["fwd_bound_ms"],
+         "bound_by": flagship["fwd_bound_by"], "library_ms": None,
+         "check": "pass", "shape": list(STEP_SHAPE)},
+        {"name": "dense_pair_loss_bwd", "route": "cuda",
+         "source": "cp2_tpu_torch/csrc/dense_loss.cu",
+         "replaces": "cp2_tpu/ops/pallas/dense_loss.py:107",
+         "launches": launches["dense_pair_loss_bwd"],
+         "max_abs_err": flagship["bwd_abs"], "ms": flagship["bwd_ms"],
+         "plain_ms": flagship["bwd_plain_ms"], "bound_ms": flagship["bwd_bound_ms"],
+         "bound_by": flagship["bwd_bound_by"], "library_ms": None,
+         "check": "pass", "shape": list(STEP_SHAPE)},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

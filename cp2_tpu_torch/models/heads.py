@@ -1,0 +1,70 @@
+"""Decode heads: ASPP (DeepLabV3) with the dense-contrast branch.
+
+Port of ``cp2_tpu/models/heads.py::ASPPHead`` (reference
+``mmseg_/models/decode_heads/aspp_head.py:53-117``): global image-pool
+branch broadcast back to the grid, parallel atrous convs ``aspp_{i}``,
+``bottleneck``, then either the ``conv_seg`` classifier or — with
+``contrast=True`` — the ``contrast_conv`` 1x1-conv MLP to a
+``contrast_dim`` dense embedding.  The contrast head returns before the
+dropout, so the pretrain step draws no random numbers.  ``FCNHead`` is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from cp2_tpu_torch.models.layers import ConvMLP, ConvModule, conv2d
+from cp2_tpu_torch.models.registry import HEADS
+
+
+def _select_input(inputs, in_index):
+    if isinstance(inputs, (tuple, list)):
+        return inputs[in_index]
+    return inputs
+
+
+@HEADS.register
+class ASPPHead(nn.Module):
+    def __init__(self, in_channels: int = 2048, channels: int = 512,
+                 num_classes: Optional[int] = None,
+                 dilations: Sequence[int] = (1, 6, 12, 18), in_index: int = -1,
+                 dropout_ratio: float = 0.1, contrast: bool = False,
+                 contrast_dim: int = 128, norm_cfg: Optional[dict] = None,
+                 align_corners: bool = False, loss_decode: Optional[dict] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        del align_corners, loss_decode  # used by the finetune path, not here
+        self.in_index = in_index
+        self.contrast = contrast
+        self.dtype = dtype
+        kw = dict(norm_cfg=norm_cfg, dtype=dtype)
+        self.image_pool = ConvModule(in_channels, channels, 1, **kw)
+        for i, dilation in enumerate(dilations):
+            setattr(self, f"aspp_{i}", ConvModule(
+                in_channels, channels, 1 if dilation == 1 else 3,
+                dilation=dilation, **kw,
+            ))
+        self.num_branches = len(dilations)
+        self.bottleneck = ConvModule((len(dilations) + 1) * channels, channels, 3, **kw)
+        if contrast:
+            self.contrast_conv = ConvMLP(channels, channels, contrast_dim, dtype=dtype)
+        else:
+            self.dropout = nn.Dropout(dropout_ratio)
+            self.conv_seg = nn.Conv2d(channels, num_classes, 1)
+
+    def forward(self, inputs) -> torch.Tensor:
+        x = _select_input(inputs, self.in_index).to(self.dtype)
+        n, _, h, w = x.shape
+        # image-level pooled branch; bilinear resize of a 1x1 map == broadcast
+        pooled = self.image_pool(x.mean(dim=(2, 3), keepdim=True))
+        branches = [pooled.expand(n, pooled.shape[1], h, w)]
+        for i in range(self.num_branches):
+            branches.append(getattr(self, f"aspp_{i}")(x))
+        y = self.bottleneck(torch.cat(branches, dim=1))
+        if self.contrast:
+            return self.contrast_conv(y)
+        return conv2d(self.conv_seg, self.dropout(y), self.dtype)

@@ -1,0 +1,174 @@
+"""Shared building blocks for the model zoo (NCHW inside, ``nn.Module``).
+
+Port of ``cp2_tpu/models/layers.py``.  What carries over, and what does not:
+
+* BatchNorm reproduces flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
+  dtype=float32)``, not torch's: running stats move by 0.1 of the batch
+  statistic, and the running variance takes the BIASED batch variance
+  (torch's ``F.batch_norm`` takes the unbiased one; ``BatchNorm`` corrects
+  its buffer after the call, ``PARITY.md:283-292`` gives the law).
+* The dtype policy of ``layers.py:39-47,279``: a conv runs in ``dtype``
+  (weights kept in float32 and cast per call), BatchNorm computes in
+  float32, and each ``ConvModule`` returns ``dtype``.
+* ``DilatedConv3x3`` and ``SpaceToDepthConv`` are exact TPU rewrites of a
+  plain conv (tap-split dilated conv, space-to-depth stem); here both are
+  the one ``nn.Conv2d`` named ``conv``, so bridged weights load unchanged.
+* "BN" and "SyncBN" are the same module: on one card the batch statistics
+  already cover the whole batch.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+FLAX_BN_MOMENTUM = 0.9  # weight of the old running stat (flax convention)
+BN_EPS = 1e-5
+
+
+class BatchNorm(nn.Module):
+    """flax-semantics BatchNorm over the channel axis of an NCHW tensor.
+
+    ``frozen`` uses the running statistics even in train mode — the
+    ``norm_eval`` / ``frozen_stages`` behaviour the flax modules thread
+    through as ``norm_frozen``.  Input of any float dtype is normalised in
+    float32 (cuDNN's mixed-precision batch norm); the output keeps the
+    input's dtype, which is what the flax module's float32 output becomes
+    after the cast each caller applies.
+    """
+
+    def __init__(self, num_features: int, *, zero_init: bool = False,
+                 frozen: bool = False):
+        super().__init__()
+        init = torch.zeros if zero_init else torch.ones
+        self.weight = nn.Parameter(init(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.zero_init = zero_init
+        self.frozen = frozen
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.frozen:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        m = FLAX_BN_MOMENTUM
+        n = x.numel() // x.shape[1]
+        # torch updates its running variance with the unbiased batch
+        # variance: let it update a copy (which autograd keeps), then set
+        # the buffer to flax's m·old + (1-m)·var = ((n-1)·copy + m·old) / n
+        torch_var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, torch_var, self.weight,
+                         self.bias, True, 1.0 - m, BN_EPS)
+        with torch.no_grad():
+            self.running_var.mul_(m / n).add_(torch_var, alpha=(n - 1) / n)
+        return y
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm(epsilon=1e-5, dtype=float32)``: float32 compute."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps)
+
+
+def make_norm(norm_cfg: Optional[dict], num_features: int, *,
+              zero_init: bool = False, frozen: bool = False
+              ) -> Optional[nn.Module]:
+    """Build a norm layer from an mmseg-style norm_cfg dict."""
+    if norm_cfg is None:
+        return None
+    kind = norm_cfg.get("type", "BN")
+    if kind in ("BN", "SyncBN", "BN2d"):
+        return BatchNorm(num_features, zero_init=zero_init, frozen=frozen)
+    if kind == "GN":
+        norm = GroupNorm(norm_cfg.get("num_groups", 32), num_features, eps=BN_EPS)
+        if zero_init:
+            nn.init.zeros_(norm.weight)
+        return norm
+    raise ValueError(f"unsupported norm type {kind!r}")
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Run ``conv`` in ``dtype`` with its float32 weights cast per call."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
+                    conv.padding, conv.dilation)
+
+
+class ConvModule(nn.Module):
+    """conv → norm → activation (mmcv ConvModule), NCHW.
+
+    Bias is omitted when a norm follows, matching the reference.
+    ``padding=None`` gives 'same' padding for odd kernels with dilation.
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1,
+                 norm_cfg: Optional[dict] = None, act: bool = True,
+                 padding: Optional[int] = None, dtype: torch.dtype = torch.float32,
+                 norm_frozen: bool = False):
+        super().__init__()
+        if padding is None:
+            padding = (kernel_size - 1) // 2 * dilation
+        self.conv = nn.Conv2d(in_channels, features, kernel_size, stride=stride,
+                              padding=padding, dilation=dilation,
+                              bias=norm_cfg is None)
+        self.norm = make_norm(norm_cfg, features, frozen=norm_frozen)
+        self.act = act
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv2d(self.conv, x, self.dtype)
+        if self.norm is not None:
+            x = self.norm(x)
+        if self.act:
+            x = F.relu(x)
+        return x.to(self.dtype)
+
+
+class ConvMLP(nn.Module):
+    """1x1-conv → relu → 1x1-conv dense projection head (``contrast_conv``)."""
+
+    def __init__(self, in_channels: int, hidden: int, out: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, hidden, 1)
+        self.conv2 = nn.Conv2d(hidden, out, 1)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(conv2d(self.conv1, x, self.dtype))
+        return conv2d(self.conv2, x, self.dtype)
+
+
+@torch.no_grad()
+def init_flax_like_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialise in place as flax's defaults would, from ``generator``.
+
+    Conv kernels: ``lecun_normal`` (truncated normal, fan-in scaling);
+    conv biases zero; norm scales one (zero where ``zero_init``), biases
+    zero; running stats zero mean, unit variance.  The values differ from
+    a flax init with the same seed — only the distributions match.
+    """
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            # flax's truncated normal is cut at ±2σ and rescaled to unit
+            # variance by this constant
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(0.0 if m.zero_init else 1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+    return module

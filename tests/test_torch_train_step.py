@@ -1,0 +1,216 @@
+"""The port's CP2 pretrain step against the JAX package's, on the CPU.
+
+Both start from one bridged state (tiny flagship-structure model, queue
+64, batch 2, 64x64, SGD momentum 0.9 / wd 1e-4) and take the pre-augmented
+batch form of ``bench.py``, the same batch every step as there.  The JAX
+step runs as the package's ``make_pretrain_step`` under ``jax.jit`` with
+``metrics_level`` 0, which computes the dense loss by einsum; on CPU
+tensors the port's step takes the plain dense loss.  Pinned after 1 and
+after 3 steps: the loss, params, the params' change, ema_params, both
+batch_stats trees, the queue, queue_ptr and step.
+
+Tolerance: rtol 1e-4 after 1 step and 1e-3 after 3, each with an absolute
+floor of the same fraction of the array's largest magnitude
+(``assert_close``).  Two deviations, measured on this model:
+
+* The JAX side runs flax's BatchNorm with its two-pass variance
+  E[(x-E[x])^2] (``use_fast_variance=False``), the port's formula, rather
+  than its default one-pass E[x^2]-E[x]^2.  The one-pass form loses digits
+  where a channel's mean dwarfs its spread (the image-pool BatchNorm over
+  2 samples reaches mean^2/var ~ 3e3): after one step the JAX step's two
+  variance forms part by 3.1e-2 of the largest update of a parameter,
+  where the port and the two-pass JAX step part by 8e-5.  One case holds
+  the port to the default JAX step after 1 step at 5e-2 for that reason.
+* The 3-step cases use lr 1e-3 instead of 0.1.  At 0.1 (and at 0.01) an
+  update changes the weights of this narrow random model by up to their
+  own size, and a float32 and a float64 run of the port itself part by
+  0.6 of a weight after 3 steps, so no float32 comparison can hold them.
+"""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as nn
+
+from _torch_port_common import (
+    BATCH,
+    DIM,
+    TINY_MODEL,
+    assert_close,
+    assert_trees_close,
+    jax_encoder,
+    pre_augmented_batch,
+    random_flax_variables,
+    to_plain_dict,
+    torch_encoder,
+    unit_queue,
+)
+from cp2_tpu.ssl import SSLHyperParams as JaxHyperParams
+from cp2_tpu.ssl.model import output_stride_of as jax_output_stride_of
+from cp2_tpu.ssl.state import PretrainState as JaxPretrainState
+from cp2_tpu.ssl.train_step import (
+    backbone_output_stride_of as jax_backbone_output_stride_of,
+    epoch_scalar_names,
+    make_optimizer as jax_make_optimizer,
+    make_pretrain_step as jax_make_pretrain_step,
+)
+from cp2_tpu.types import BackboneType as JaxBackboneType
+from cp2_tpu.types import PretrainType as JaxPretrainType
+from cp2_tpu_torch.checkpoint.bridge import (
+    load_pretrain_state_from_flax,
+    pretrain_state_to_flax,
+)
+from cp2_tpu_torch.ssl import SSLHyperParams, create_pretrain_state, output_stride_of
+from cp2_tpu_torch.ssl.train_step import (
+    CP2_EPOCH_SCALARS,
+    make_optimizer,
+    make_pretrain_step,
+)
+from cp2_tpu_torch.types import PretrainType
+
+QUEUE_LEN = 64
+LR = {1: 0.1, 3: 1e-3}
+TOL = {1: 1e-4, 3: 1e-3}
+FAST_VARIANCE_TOL = 5e-2
+
+
+class TwoPassBatchNorm(nn.BatchNorm):
+    use_fast_variance: bool = False
+
+
+def _initial_tree():
+    params, stats = random_flax_variables(jax_encoder(), seed=0)
+    return {
+        "params": params,
+        "batch_stats": stats,
+        "ema_params": copy.deepcopy(params),
+        "ema_batch_stats": copy.deepcopy(stats),
+        "queue": unit_queue(1, QUEUE_LEN),
+        "queue_ptr": np.int32(0),
+        "step": np.int32(0),
+    }
+
+
+def _jax_run(tree, batches, lr, epoch_scalars, two_pass=True):
+    model = jax_encoder()
+    hp = JaxHyperParams.for_variant(JaxPretrainType.CP2, dim=DIM, queue_len=QUEUE_LEN)
+    tx = jax_make_optimizer("sgd", lr)
+    state = JaxPretrainState(
+        step=jnp.asarray(tree["step"]),
+        params=tree["params"],
+        batch_stats=tree["batch_stats"],
+        ema_params=tree["ema_params"],
+        ema_batch_stats=tree["ema_batch_stats"],
+        opt_state=tx.init(tree["params"]),
+        queue=jnp.asarray(tree["queue"]),
+        queue_ptr=jnp.asarray(tree["queue_ptr"]),
+        queue2=jnp.asarray(tree["queue"]),
+        queue2_ptr=jnp.zeros((), jnp.int32),
+    )
+    step = jax.jit(jax_make_pretrain_step(
+        model, tx, hp, jax_output_stride_of(TINY_MODEL),
+        jax_backbone_output_stride_of(TINY_MODEL, JaxBackboneType.DEEPLABV3),
+        metrics_level=0, epoch_scalars=epoch_scalars,
+    ))
+    out = []
+    with pytest.MonkeyPatch.context() as patch:
+        if two_pass:  # traced at the first call
+            patch.setattr(nn, "BatchNorm", TwoPassBatchNorm)
+        for batch in batches:
+            state, metrics = step(state, batch, jax.random.PRNGKey(0))
+            snap = {k: to_plain_dict(getattr(state, k)) for k in (
+                "params", "batch_stats", "ema_params", "ema_batch_stats", "queue",
+                "queue_ptr", "step")}
+            out.append((snap, to_plain_dict(metrics)))
+    return out
+
+
+def _torch_run(tree, batches, lr, epoch_scalars):
+    hp = SSLHyperParams.for_variant(PretrainType.CP2, dim=DIM, queue_len=QUEUE_LEN)
+    state = create_pretrain_state(torch_encoder(), make_optimizer("sgd", lr), hp,
+                                  device="cpu")
+    load_pretrain_state_from_flax(state, tree)
+    step = make_pretrain_step(hp, output_stride_of(TINY_MODEL),
+                              epoch_scalars=epoch_scalars, augment_fn=None)
+    out = []
+    for batch in batches:
+        state, metrics = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        out.append((pretrain_state_to_flax(state),
+                    {k: v.numpy() for k, v in metrics.items()}))
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """``get(n_steps, epoch_scalars, two_pass)`` → (JAX run, port run), each a
+    list of (state tree, metrics) per step; computed once per key."""
+    tree = _initial_tree()
+    cache = {}
+
+    def get(n_steps, epoch_scalars=False, two_pass=True):
+        key = (n_steps, epoch_scalars, two_pass)
+        if key not in cache:
+            batches = [pre_augmented_batch(0)] * n_steps
+            lr = LR[n_steps]
+            cache[key] = (_jax_run(tree, batches, lr, epoch_scalars, two_pass),
+                          _torch_run(tree, batches, lr, epoch_scalars))
+        return tree, cache[key]
+
+    return get
+
+
+def _delta(tree, start):
+    return {k: _delta(v, start[k]) if isinstance(v, dict) else v - start[k]
+            for k, v in tree.items()}
+
+
+def _states_close(state, ref_state, start, tol, n_steps):
+    for name in ("params", "batch_stats", "ema_params", "ema_batch_stats"):
+        assert_trees_close(state[name], ref_state[name], tol, name)
+    if n_steps == 1:
+        # the change of the params holds the gradients to the same
+        # tolerance (at lr 1e-3 a float32 weight's rounding is 1e-3 of it)
+        assert_trees_close(_delta(state["params"], start["params"]),
+                     _delta(ref_state["params"], start["params"]), tol, "update")
+    assert_close(state["queue"], ref_state["queue"], tol, "queue")
+    assert int(state["queue_ptr"]) == int(ref_state["queue_ptr"]) == n_steps * BATCH
+    assert int(state["step"]) == int(ref_state["step"]) == n_steps
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_cp2_steps_match_jax(runs, n_steps):
+    # the 3-step runs carry epoch_scalars, which adds metrics and leaves
+    # the state as it is: one JAX compile fewer
+    start, (jax_out, torch_out) = runs(n_steps, epoch_scalars=n_steps == 3)
+    ref_state, ref_metrics = jax_out[-1]
+    state, metrics = torch_out[-1]
+    tol = TOL[n_steps]
+    assert np.isfinite(metrics["loss"])
+    for (_, m), (_, ref_m) in zip(torch_out, jax_out):
+        assert_close(m["loss"], ref_m["loss"], tol, "loss")
+    _states_close(state, ref_state, start, tol, n_steps)
+
+
+def test_cp2_step_matches_default_jax_step(runs):
+    """One step against the JAX step exactly as the package runs it, with
+    flax's one-pass BatchNorm variance (see the module docstring)."""
+    start, (jax_out, torch_out) = runs(1, two_pass=False)
+    (ref_state, ref_metrics), (state, metrics) = jax_out[-1], torch_out[-1]
+    assert_close(metrics["loss"], ref_metrics["loss"], TOL[1], "loss")
+    _states_close(state, ref_state, start, FAST_VARIANCE_TOL, 1)
+
+
+def test_epoch_scalars_match_jax(runs):
+    """``epoch_scalars=True``: the packed ``_epoch_vec`` of every step, in
+    the JAX package's ``epoch_scalar_names`` order, and the same state."""
+    assert tuple(name for name, _ in CP2_EPOCH_SCALARS) == epoch_scalar_names(
+        JaxPretrainType.CP2)
+    start, (jax_out, torch_out) = runs(3, epoch_scalars=True)
+    for (_, ref_metrics), (_, metrics) in zip(jax_out, torch_out):
+        assert_close(metrics["_epoch_vec"], ref_metrics["_epoch_vec"], TOL[3], "_epoch_vec")
+        assert metrics["loss"] == metrics["_epoch_vec"][0]
+    _states_close(torch_out[-1][0], jax_out[-1][0], start, TOL[3], 3)

@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Where the time of the port's full-width CP2 step goes, on one NVIDIA card.
+
+    python3 tools/profile_torch_step.py [--steps 3]
+
+Builds the step as ``chip_smoke.py`` does (dilated ResNet-50 + ASPP-512,
+contrast dim 128, queue 65536, 224x224, batch 32, bfloat16 model, SGD),
+warms it up, then:
+
+1. times ``--steps`` steps with the host clock, each ending in
+   ``torch.cuda.synchronize()``, with cuDNN's default algorithm choice;
+2. profiles the same number of steps with ``torch.profiler`` (CPU and
+   CUDA activities) and prints the device time by kernel, the share of
+   the window the device was busy, and the device time of the dense
+   pair-loss kernels;
+3. times the same steps again with ``torch.backends.cudnn.benchmark``
+   on, which lets cuDNN measure its algorithms once per shape;
+4. times each ASPP branch's convolution alone (forward, and forward +
+   backward) on the head's real input, (32, 2048, 14, 14) bfloat16, in
+   both memory layouts: contiguous NCHW, and channels-last (NHWC in
+   memory), the layout the step's activations take because
+   ``SSLEncoder.dense`` permutes its NHWC input to an NCHW view.
+
+It prints the card's name and power limit beside the numbers and writes
+the profiler table and a Chrome trace under ``chiprun_out/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from chip_smoke import gpu_line, pre_augmented_batch  # noqa: E402
+
+
+def build_step():
+    import cp2_tpu_torch
+    from cp2_tpu_torch.config import Config
+    from cp2_tpu_torch.ssl import SSLEncoder, SSLHyperParams, create_pretrain_state
+    from cp2_tpu_torch.ssl import output_stride_of
+    from cp2_tpu_torch.ssl.train_step import make_optimizer, make_pretrain_step
+    from cp2_tpu_torch.types import PretrainType
+
+    cfg = Config.fromfile(os.path.join(os.path.dirname(cp2_tpu_torch.__file__),
+                                       "configs", "config_pretrain.py"))
+    model_cfg = dict(cfg.model)
+    hp = SSLHyperParams.for_variant(PretrainType.CP2)
+    model = SSLEncoder(model_cfg, dim=128, dtype=torch.bfloat16)
+    state = create_pretrain_state(model, make_optimizer("sgd", 1e-3), hp, seed=0)
+    step = make_pretrain_step(hp, output_stride_of(model_cfg), augment_fn=None)
+    return state, step, pre_augmented_batch(32, 224, 0, "cuda")
+
+
+def aspp_branch_times(model):
+    """Device ms of each ASPP branch conv on the head's input, via CUDA events."""
+    from chip_smoke import cuda_ms
+    from cp2_tpu_torch.models.layers import conv2d
+
+    head = model.encoder.decode_head
+    nchw = torch.randn(32, 2048, 14, 14, device="cuda", dtype=torch.bfloat16)
+    layouts = {"nchw": nchw, "channels_last": nchw.to(memory_format=torch.channels_last)}
+    out = {}
+    for i in range(head.num_branches):
+        conv = getattr(head, f"aspp_{i}").conv
+        for layout, x in layouts.items():
+            xg = x.detach().clone().requires_grad_()
+
+            def fwd_bwd():
+                conv2d(conv, xg, torch.bfloat16).float().sum().backward()
+
+            with torch.no_grad():
+                fwd = cuda_ms(lambda: conv2d(conv, x, torch.bfloat16), iters=5, warmup=1)
+            both = cuda_ms(fwd_bwd, iters=5, warmup=1)
+            out[f"aspp_{i}/{layout}"] = {"kernel": conv.kernel_size[0],
+                                         "dilation": conv.dilation[0],
+                                         "fwd_ms": fwd, "fwd_bwd_ms": both}
+            print(f"aspp_{i}: {conv.kernel_size[0]}x{conv.kernel_size[1]} dilation "
+                  f"{conv.dilation[0]:2d} {layout:13s}: forward {fwd:.2f} ms, "
+                  f"forward+backward {both:.2f} ms")
+    return out
+
+
+def timed(state, step, batch, n):
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return state, times
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", type=int, default=3)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    card = gpu_line()
+    print(f"device: {card}")
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    state, step, batch = build_step()
+
+    state, _ = timed(state, step, batch, 3)  # warm-up
+    state, t_default = timed(state, step, batch, args.steps)
+    print(f"step ms, cudnn.benchmark off: {['%.2f' % t for t in t_default]} "
+          f"(median {statistics.median(t_default):.2f})")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = timed(state, step, batch, args.steps)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"profiled {args.steps} steps: wall {wall_ms:.1f} ms, device busy "
+          f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f} % of the window)")
+    rows = []
+    for e in events[:25]:
+        ms = e.self_device_time_total / 1e3
+        rows.append({"kernel": e.key, "device_ms": ms, "calls": e.count,
+                     "share": ms / device_ms})
+        print(f"  {ms:9.2f} ms  {100 * ms / device_ms:5.1f} %  x{e.count:<5d} {e.key[:110]}")
+    dense = [e for e in events if "fwd_tiles" in e.key or "fwd_reduce" in e.key
+             or "bwd_tiles" in e.key]
+    dense_ms = sum(e.self_device_time_total for e in dense) / 1e3
+    print(f"dense pair-loss kernels: {dense_ms:.3f} ms over {args.steps} steps "
+          f"({100 * dense_ms / device_ms:.2f} % of device time)")
+    prof.export_chrome_trace(os.path.join(out_dir, "torch_step_trace.json"))
+
+    torch.backends.cudnn.benchmark = True
+    state, _ = timed(state, step, batch, 3)  # cuDNN measures its algorithms here
+    state, t_bench = timed(state, step, batch, args.steps)
+    print(f"step ms, cudnn.benchmark on: {['%.2f' % t for t in t_bench]} "
+          f"(median {statistics.median(t_bench):.2f})")
+
+    torch.backends.cudnn.benchmark = False
+    branches = aspp_branch_times(state.model)
+
+    summary = {"card": card, "steps": args.steps, "step_ms_default": t_default,
+               "step_ms_cudnn_benchmark": t_bench, "profiled_wall_ms": wall_ms,
+               "device_busy_ms": device_ms, "dense_loss_ms": dense_ms,
+               "top_kernels": rows, "aspp_branches": branches}
+    with open(os.path.join(out_dir, "torch_step_profile.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
