@@ -13,7 +13,13 @@ Phases, in order; any failure exits non-zero:
 3. kernels  the dense-pair-loss kernels against their plain PyTorch
             versions, forward value, dq and dk, float32 and bfloat16
             operands, temperatures 1.0 and 0.2, at the CP2 step's shape
-            and four more; kernel and plain times at each shape;
+            and six more (every channel width the kernels are built
+            for); two runs of each kernel on the same inputs must be
+            bit-equal, and so must forwards run on two streams at once;
+            kernel and plain times at each shape
+            (device time of a CUDA graph of back-to-back calls, and the
+            eager calls' time by CUDA events) beside two bounds: the
+            tensor cores' (3xTF32 for float32 operands) and float32 FMA's;
 4. small    one CP2 step of a narrow model on the card against the same
             step on the CPU, where the dense loss takes its plain version;
 5. step     the full-width CP2 pretrain step (dilated ResNet-50 + ASPP-512,
@@ -42,7 +48,11 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-SHAPES = [(32, 196, 128), (8, 1024, 128), (2, 4096, 128), (1, 100, 8), (1, 640, 16)]
+PEAK_TF32_FLOPS = 495e12  # H100 SXM tensor cores, TF32, dense
+TF32_PASSES = 3  # float32 operands run as 3xTF32 products
+# C = 8 and 16 run at the kernels' padded width 32; 64 and 256 are built too
+SHAPES = [(32, 196, 128), (8, 1024, 128), (2, 4096, 128), (1, 100, 8), (1, 640, 16),
+          (2, 196, 64), (2, 196, 256)]
 STEP_SHAPE = SHAPES[0]  # (N, S², C) of the CP2 step at 224², batch 32
 TEMPS = (1.0, 0.2)
 F32_TOL = {"loss_rtol": 2e-5, "grad_rtol": 1e-4}  # tests/test_pallas_dense_loss.py
@@ -61,7 +71,10 @@ def gpu_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches, CUDA events."""
+    """Mean time of ``fn()`` over ``iters`` eager calls, CUDA events.
+
+    Where the host takes longer to enqueue a call than the device to run
+    it, this is the host's time; ``graph_ms`` is the device's."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -69,6 +82,39 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+_capture_stream = None
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()``: ``iters`` calls captured in one CUDA
+    graph and replayed back to back, timed by CUDA events.
+
+    Every capture uses one stream: PyTorch keeps a cuBLAS workspace for
+    each stream that ran a product, for the life of the process, and a new
+    stream per call would hold memory the step's peak then counts."""
+    global _capture_stream
+    if _capture_stream is None:
+        _capture_stream = torch.cuda.Stream()
+    side = _capture_stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -107,11 +153,49 @@ def dense_work(n, s2, c):
     return (qk + masks + lse + 4, sim), (qk + masks + lse + 4 + n * s2 * c * 4, 2 * sim)
 
 
-def bound_ms(nbytes, flops):
-    """The least time for the work, and what sets it, float32 operands."""
+def bound_ms(nbytes, ops, peak_ops_per_s):
+    """The least time for the work at the given operation rate, and what
+    sets it: bytes over the memory rate, or operations over the rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = ops / peak_ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bounds(nbytes, flops):
+    """For float32 operands: (tensor-core bound, what sets it), the kernel's
+    arithmetic, 3xTF32; and the float32-FMA bound of a CUDA-core kernel."""
+    tc = bound_ms(nbytes, TF32_PASSES * flops, PEAK_TF32_FLOPS)
+    return tc[0], tc[1], bound_ms(nbytes, flops, PEAK_FP32_FLOPS)[0]
+
+
+def check_deterministic(dl, q, k, a, b, dtype):
+    """Two runs of each kernel on the same inputs give the same bits."""
+    ops = dl.prepare_operands(q, k, a, b, dtype)
+    g = torch.ones((), device="cuda")
+    runs = []
+    for _ in range(2):
+        loss, lse = dl.fwd_kernel(*ops, 0.2)
+        dq, dk = dl.bwd_kernel(*ops, lse, g, 0.2)
+        runs.append((loss, lse, dq, dk))
+    torch.cuda.synchronize()
+    return all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def check_streams(dl, q, k, a, b):
+    """Forwards on two streams at once give the serial loss, bit for bit:
+    each stream has its own counter for finding the forward's last block."""
+    ops = dl.prepare_operands(q, k, a, b, torch.float32)
+    want, _ = dl.fwd_kernel(*ops, 0.2)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    losses = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(16):
+        for s in streams:
+            with torch.cuda.stream(s):
+                losses.append(dl.fwd_kernel(*ops, 0.2)[0])
+    torch.cuda.synchronize()
+    return all(torch.equal(x, want) for x in losses)
 
 
 def check_kernels(dl):
@@ -150,26 +234,38 @@ def check_kernels(dl):
                 if (n, s2, c) == STEP_SHAPE and dtype == torch.float32:
                     flagship["fwd_abs"] = max(flagship.get("fwd_abs", 0.0), abs_fwd)
                     flagship["bwd_abs"] = max(flagship.get("bwd_abs", 0.0), abs_bwd)
+            if not check_deterministic(dl, q, k, a, b, dtype):
+                raise SystemExit(f"two runs of the kernels differ at {(n, s2, c)} {dtype}")
+        log(f"  two runs bit-equal at N={n} S2={s2} C={c}, float32 and bfloat16")
+        if (n, s2, c) == STEP_SHAPE:
+            if not check_streams(dl, q, k, a, b):
+                raise SystemExit("forwards on two streams at once disagree with the serial one")
+            log("  forwards on two streams at once: bit-equal to the serial one")
         # times, float32 operands, T = 1
         ops = dl.prepare_operands(q, k, a, b, torch.float32)
         _, lse = dl.fwd_kernel(*ops, 1.0)
         g = torch.ones((), device="cuda")
-        t = {
-            "fwd_ms": cuda_ms(lambda: dl.fwd_kernel(*ops, 1.0)),
-            "fwd_plain_ms": cuda_ms(lambda: dl.dense_pair_loss_reference(q, k, a, b, 1.0)),
+        calls = {
+            "fwd": lambda: dl.fwd_kernel(*ops, 1.0),
+            "fwd_plain": lambda: dl.dense_pair_loss_reference(q, k, a, b, 1.0),
             # the step's backward: dq only (the keys carry no gradient)
-            "bwd_ms": cuda_ms(lambda: dl.bwd_kernel(*ops, lse, g, 1.0, need_dk=False)),
-            "bwd_plain_ms": cuda_ms(
-                lambda: dl.dense_pair_loss_backward(q, k, a, b, lse, 1.0)),
+            "bwd": lambda: dl.bwd_kernel(*ops, lse, g, 1.0, need_dk=False),
+            "bwd_plain": lambda: dl.dense_pair_loss_backward(q, k, a, b, lse, 1.0),
         }
+        t = {}
+        for name, fn in calls.items():
+            t[f"{name}_ms"] = graph_ms(fn)
+            t[f"{name}_eager_ms"] = cuda_ms(fn)
         fwd_work, bwd_work = dense_work(n, s2, c)
-        t["fwd_bound_ms"], t["fwd_bound_by"] = bound_ms(*fwd_work)
-        t["bwd_bound_ms"], t["bwd_bound_by"] = bound_ms(*bwd_work)
-        log(f"  time  N={n} S2={s2} C={c} float32: fwd kernel {t['fwd_ms']:.4f} ms "
-            f"plain {t['fwd_plain_ms']:.4f} ms bound {t['fwd_bound_ms']:.4f} ms "
-            f"({t['fwd_bound_by']}) | bwd(dq) kernel {t['bwd_ms']:.4f} ms plain "
-            f"{t['bwd_plain_ms']:.4f} ms bound {t['bwd_bound_ms']:.4f} ms "
-            f"({t['bwd_bound_by']})")
+        t["fwd_bound_ms"], t["fwd_bound_by"], t["fwd_fp32_fma_bound_ms"] = bounds(*fwd_work)
+        t["bwd_bound_ms"], t["bwd_bound_by"], t["bwd_fp32_fma_bound_ms"] = bounds(*bwd_work)
+        for d in ("fwd", "bwd"):
+            log(f"  time  N={n} S2={s2} C={c} float32 {d + ('(dq)' if d == 'bwd' else ''):7s}: "
+                f"kernel {t[d + '_ms']:.4f} ms (eager {t[d + '_eager_ms']:.4f}) | plain "
+                f"{t[d + '_plain_ms']:.4f} ms (eager {t[d + '_plain_eager_ms']:.4f}) | "
+                f"tensor-core bound {t[d + '_bound_ms']:.4f} ms ({t[d + '_bound_by']}), "
+                f"{100 * t[d + '_bound_ms'] / t[d + '_ms']:.1f} % of it | float32-FMA "
+                f"bound {t[d + '_fp32_fma_bound_ms']:.4f} ms")
         if (n, s2, c) == STEP_SHAPE:
             flagship.update(t)
     return flagship
@@ -391,6 +487,8 @@ def main() -> int:
          "max_abs_err": flagship["fwd_abs"], "ms": flagship["fwd_ms"],
          "plain_ms": flagship["fwd_plain_ms"], "bound_ms": flagship["fwd_bound_ms"],
          "bound_by": flagship["fwd_bound_by"], "library_ms": None,
+         "fp32_fma_bound_ms": flagship["fwd_fp32_fma_bound_ms"],
+         "eager_ms": flagship["fwd_eager_ms"],
          "check": "pass", "shape": list(STEP_SHAPE)},
         {"name": "dense_pair_loss_bwd", "route": "cuda",
          "source": "cp2_tpu_torch/csrc/dense_loss.cu",
@@ -399,6 +497,8 @@ def main() -> int:
          "max_abs_err": flagship["bwd_abs"], "ms": flagship["bwd_ms"],
          "plain_ms": flagship["bwd_plain_ms"], "bound_ms": flagship["bwd_bound_ms"],
          "bound_by": flagship["bwd_bound_by"], "library_ms": None,
+         "fp32_fma_bound_ms": flagship["bwd_fp32_fma_bound_ms"],
+         "eager_ms": flagship["bwd_eager_ms"],
          "check": "pass", "shape": list(STEP_SHAPE)},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,16 +5,17 @@ Replaces the Pallas TPU kernel pair of ``cp2_tpu/ops/pallas/dense_loss.py``
 ``pallas_call`` :222) with ``csrc/dense_loss.cu``; the design and the
 algebra are in that file's header.  In short: the per-key-column softmax
 over queries is flash attention with the roles swapped — a block owns
-(sample, key tile) and streams query tiles, so no (S², S²) tensor is ever
-formed and S² has no upper bound; the forward saves ``lse`` (N, S²) and
-the backward is two deterministic passes (dk over key tiles, dq over
-query tiles).
+(sample, key tile) and streams query chunks, so no (S², S²) tensor is ever
+formed and S² has no upper bound; the forward is one launch that saves
+``lse`` (N, S²), and the backward is two deterministic passes (dk over key
+tiles, dq over query tiles).
 
-What bounds it on an H100: float32 FMA on the CUDA cores.  At the
-flagship shape (N=32, S²=196, C=128) the forward is 0.31 GFLOP over
-6.4 MB of float32 q/k, at the 512² shape (N=8, S²=1024) 2.1 GFLOP over
-8.4 MB — both well above the card's bytes-per-FLOP balance.  This first
-version uses no tensor cores; its times stand beside its bound in PERF.md.
+The products run on the H100's tensor cores (``wgmma``), with tiles
+brought in by TMA: bfloat16 operands as one bf16 product, float32
+operands as 3×TF32 — each operand split as ``tf32_split`` does, and
+big·big + big·small + small·big summed in float32 — which keeps float32's
+accuracy (one TF32 pass is ten times outside the gradient tolerance).
+``tf32x3_einsum`` is that arithmetic in plain PyTorch, for the CPU tests.
 
 ``dense_pair_loss`` launches the kernel for CUDA tensors (and raises if
 it cannot build or launch) and takes the plain einsum formula only for
@@ -44,6 +45,28 @@ def reset_launch_counts() -> None:
 # plain versions
 # ---------------------------------------------------------------------------
 
+def tf32_split(x: torch.Tensor):
+    """(big, small) with ``x = big + small`` exactly, float32.
+
+    ``big`` is ``x`` with its low 13 mantissa bits cleared: the TF32 value
+    the tensor cores read of a float32, the kernel's big part of each
+    operand.
+    """
+    x = x.float().contiguous()
+    big = (x.view(torch.int32) & -8192).view(torch.float32)  # 0xFFFFE000
+    return big, x - big
+
+
+def tf32x3_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(spec, a, b)`` as the kernel forms it from float32
+    operands: big·big + big·small + small·big, each part read as TF32."""
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    a_small, b_small = tf32_split(a_small)[0], tf32_split(b_small)[0]
+    return (torch.einsum(spec, a_big, b_small) + torch.einsum(spec, a_small, b_big)
+            + torch.einsum(spec, a_big, b_big))
+
+
 def dense_pair_loss_reference(q, k, mask_a, mask_b, temperature: float):
     """The einsum / log_softmax(axis=1) formula (``dense_loss.py:60-74``)."""
     logits = torch.einsum("nxc,nyc->nxy", q, k) / temperature
@@ -55,13 +78,16 @@ def dense_pair_loss_reference(q, k, mask_a, mask_b, temperature: float):
     return (num / den).mean()
 
 
-def dense_pair_loss_factorized(q, k, mask_a, mask_b, temperature: float):
+def dense_pair_loss_factorized(q, k, mask_a, mask_b, temperature: float,
+                               einsum=torch.einsum):
     """The algebra the kernel's forward implements; returns (loss, lse).
 
     loss = mean_n Σ_y b_y (A·lse_y − s_y) / max(A·B, 1e-12) with
     lse_y = logsumexp_x(q_x·k_y / T), s_y = Σ_x a_x q_x·k_y / T.
+    ``einsum`` forms the similarities (``tf32x3_einsum``: the kernel's
+    arithmetic).
     """
-    logits = torch.einsum("nxc,nyc->nxy", q, k) * (1.0 / temperature)
+    logits = einsum("nxc,nyc->nxy", q, k) * (1.0 / temperature)
     lse = torch.logsumexp(logits, dim=1)  # (N, S²): softmax over queries
     s = torch.einsum("nx,nxy->ny", mask_a, logits)
     a_sum, b_sum = mask_a.sum(dim=1), mask_b.sum(dim=1)
@@ -70,21 +96,21 @@ def dense_pair_loss_factorized(q, k, mask_a, mask_b, temperature: float):
 
 
 def dense_pair_loss_backward(q, k, mask_a, mask_b, lse, temperature: float,
-                             grad=1.0):
+                             grad=1.0, einsum=torch.einsum):
     """The kernel's analytic backward from the saved ``lse``: (dq, dk).
 
-    d sim[x,y] = g·b_y·(A·exp(q_x·k_y/T − lse_y) − a_x) / (T·N·max(A·B, 1e-12))
+    d sim[x,y] = g·b_y·(A·exp(q_x·k_y/T − lse_y) − a_x) / (T·N·max(A·B, 1e-12));
+    ``einsum`` forms all three products.
     """
     n = q.shape[0]
     inv_t = 1.0 / temperature
-    logits = torch.einsum("nxc,nyc->nxy", q, k) * inv_t
+    logits = einsum("nxc,nyc->nxy", q, k) * inv_t
     p = torch.exp(logits - lse[:, None, :])
     a_sum, b_sum = mask_a.sum(dim=1), mask_b.sum(dim=1)
     scale = grad * inv_t / (n * (a_sum * b_sum).clamp_min(1e-12))
     d = scale[:, None, None] * mask_b[:, None, :] * (
         a_sum[:, None, None] * p - mask_a[:, :, None])
-    return (torch.einsum("nxy,nyc->nxc", d, k),
-            torch.einsum("nxy,nxc->nyc", d, q))
+    return einsum("nxy,nyc->nxc", d, k), einsum("nxy,nxc->nyc", d, q)
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +126,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = cuda_build.load("dense_loss")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cp2_dense_loss_fwd.argtypes = [ptr] * 4 + [i32] * 4 + [f32] + [ptr] * 4
+        lib.cp2_dense_loss_fwd.argtypes = [ptr] * 4 + [i32] * 4 + [f32] + [ptr] * 5
         lib.cp2_dense_loss_fwd.restype = i32
         lib.cp2_dense_loss_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [f32] + [ptr] * 3
         lib.cp2_dense_loss_bwd.restype = i32
@@ -110,6 +136,28 @@ def _library() -> ctypes.CDLL:
         lib.cp2_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device, stream: torch.cuda.Stream) -> torch.Tensor:
+    """The forward's counter for ``stream``: one int32 on the device, zeroed
+    once; each forward's last block leaves it at 0 again.
+
+    The forward's blocks take tickets from it to find the last one, so two
+    forwards that may run at the same time must not share it: streams run
+    their forwards one after another, so each stream gets its own.
+    """
+    key = (device.index, stream.cuda_stream)
+    ticket = _tickets.get(key)
+    if ticket is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("dense_pair_loss: run one forward on this stream before "
+                               "capturing it in a CUDA graph (its counter is made then)")
+        ticket = torch.zeros((), dtype=torch.int32, device=device)
+        _tickets[key] = ticket
+    return ticket
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -174,11 +222,12 @@ def fwd_kernel(q16, k16, a, b, temperature: float):
     partial = torch.empty((n, tiles), dtype=torch.float32, device=q16.device)
     loss = torch.empty((), dtype=torch.float32, device=q16.device)
     with torch.cuda.device(q16.device):
+        stream = torch.cuda.current_stream(q16.device)
         err = lib.cp2_dense_loss_fwd(
             q16.data_ptr(), k16.data_ptr(), a.data_ptr(), b.data_ptr(),
             n, s2, width, int(q16.dtype == torch.bfloat16), 1.0 / temperature,
             lse.data_ptr(), partial.data_ptr(), loss.data_ptr(),
-            torch.cuda.current_stream(q16.device).cuda_stream,
+            _ticket(q16.device, stream).data_ptr(), stream.cuda_stream,
         )
     _check(lib, err, "dense_pair_loss forward")
     LAUNCHES["dense_pair_loss_fwd"] += 1

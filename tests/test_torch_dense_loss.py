@@ -7,6 +7,11 @@ checked on the CPU: the factorized forward (per key column
 from the saved ``lse``, against ``dense_pair_loss_reference`` of
 ``cp2_tpu/ops/pallas/dense_loss.py`` and its ``jax.grad``.
 
+The kernel forms its products from float32 operands as 3×TF32 on the
+tensor cores; ``tf32x3_einsum`` emulates that arithmetic, and the tests
+below hold the emulated forward and backward against JAX at the same
+tolerances, and pin one TF32 pass as outside them.
+
 Tolerances (those of ``tests/test_pallas_dense_loss.py``): forward rtol
 2e-5, gradients rtol 1e-4 / atol 1e-6, all float32.
 """
@@ -105,3 +110,60 @@ def test_ragged_qk_rejected():
     q, k, a, b = _t(*_inputs(1, 128, 8))
     with pytest.raises(ValueError, match="mismatch"):
         port.dense_pair_loss(q, k[:, :100], a, b, 1.0)
+
+
+TF32_SHAPES = SHAPES + [(2, 196, 128)]  # + the step's channel width
+TF32_TEMPS = [1.0, 0.2]  # 0.2: the CP2 step's dense temperature
+
+
+def test_tf32_split_is_exact():
+    x = torch.from_numpy(np.random.RandomState(5).randn(4096).astype(np.float32))
+    big, small = port.tf32_split(x)
+    assert torch.equal(big + small, x)
+    assert not (big.view(torch.int32) & 0x1FFF).any()  # TF32: 10 mantissa bits
+    assert (small.abs() <= x.abs() * 2.0 ** -10).all()
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("temp", TF32_TEMPS)
+def test_tf32x3_forward_matches_jax(shape, temp):
+    """The kernel's forward arithmetic (3×TF32 products) is float32-accurate."""
+    q, k, a, b = _inputs(*shape, seed=shape[1] + shape[2])
+    ref, _ = _jax_value_and_grads(q, k, a, b, temp)
+    loss, _ = port.dense_pair_loss_factorized(*_t(q, k, a, b), temp,
+                                              einsum=port.tf32x3_einsum)
+    np.testing.assert_allclose(loss.numpy(), ref, rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("temp", TF32_TEMPS)
+def test_tf32x3_backward_matches_jax_grad(shape, temp):
+    """The kernel's backward arithmetic: lse, logits, dq and dk all from
+    3×TF32 products."""
+    q, k, a, b = _inputs(*shape, seed=shape[1] + shape[2] + 1)
+    _, (dq_ref, dk_ref) = _jax_value_and_grads(q, k, a, b, temp)
+    tq, tk, ta, tb = _t(q, k, a, b)
+    _, lse = port.dense_pair_loss_factorized(tq, tk, ta, tb, temp,
+                                             einsum=port.tf32x3_einsum)
+    dq, dk = port.dense_pair_loss_backward(tq, tk, ta, tb, lse, temp,
+                                           einsum=port.tf32x3_einsum)
+    np.testing.assert_allclose(dq.numpy(), dq_ref, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(dk.numpy(), dk_ref, rtol=1e-4, atol=1e-6)
+
+
+def test_one_tf32_pass_is_outside_the_gradient_tolerance():
+    """Why the kernel takes three products: one TF32 pass (the big parts
+    alone) puts dq more than 1e-4 of its largest element from JAX."""
+    def one_pass(spec, x, y):
+        return torch.einsum(spec, port.tf32_split(x)[0], port.tf32_split(y)[0])
+
+    q, k, a, b = _inputs(2, 196, 128, seed=7)
+    _, (dq_ref, _) = _jax_value_and_grads(q, k, a, b, 0.2)
+    tq, tk, ta, tb = _t(q, k, a, b)
+    errors = {}
+    for name, einsum in (("one pass", one_pass), ("3xTF32", port.tf32x3_einsum)):
+        _, lse = port.dense_pair_loss_factorized(tq, tk, ta, tb, 0.2, einsum=einsum)
+        dq, _ = port.dense_pair_loss_backward(tq, tk, ta, tb, lse, 0.2, einsum=einsum)
+        errors[name] = np.abs(dq.numpy() - dq_ref).max() / np.abs(dq_ref).max()
+    assert errors["one pass"] > 1e-4, errors
+    assert errors["3xTF32"] < 1e-5, errors

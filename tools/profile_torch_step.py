@@ -136,8 +136,8 @@ def main() -> int:
         rows.append({"kernel": e.key, "device_ms": ms, "calls": e.count,
                      "share": ms / device_ms})
         print(f"  {ms:9.2f} ms  {100 * ms / device_ms:5.1f} %  x{e.count:<5d} {e.key[:110]}")
-    dense = [e for e in events if "fwd_tiles" in e.key or "fwd_reduce" in e.key
-             or "bwd_tiles" in e.key]
+    dense = [e for e in events  # csrc/dense_loss.cu's kernels
+             if "namespace)::fwd_kernel<" in e.key or "namespace)::bwd_kernel<" in e.key]
     dense_ms = sum(e.self_device_time_total for e in dense) / 1e3
     print(f"dense pair-loss kernels: {dense_ms:.3f} ms over {args.steps} steps "
           f"({100 * dense_ms / device_ms:.2f} % of device time)")
