@@ -27,7 +27,23 @@ Phases, in order; any failure exits non-zero:
             model) through ``create_pretrain_state`` and
             ``make_pretrain_step``: 2 warm-up and 5 timed steps, the launch
             counts of the kernels over those 7 steps, and the kernel held
-            against the plain version on the step's own dense features.
+            against the plain version on the step's own dense features;
+6. augment  the on-device pretrain augmentation at full width: raw
+            (32, 256, 256, 3) uint8 ``fg``, ``bg0``, ``bg1`` to 224x224:
+            parameters drawn on the CPU and applied on the card and on the
+            CPU (images to 1e-5, ids exactly); the samplers on the card's
+            generator against the laws' expectations over 4096 draws; every
+            background's erased rectangle; the device time per batch;
+7. cli      the pretrain CLI (``cp2_tpu_torch.train.pretrain.main``) on the
+            card at full width on a synthetic directory of 256x256 PNGs:
+            the default config, batch 32, 224x224, bfloat16,
+            ``--metrics_level 1``, logged and quiet steps, a checkpoint and a
+            ``--resume`` from it; first, batches staged through the pinned
+            copy stream against their host arrays; finite losses, the metric keys in
+            ``metrics.jsonl``, one launch of each dense-loss kernel per step,
+            the step and ``queue_ptr`` carried on by the resume; quiet and
+            logged step times, end-to-end images/s (loader, copy and
+            augmentation included) and the peak memory.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -35,13 +51,17 @@ power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -431,6 +451,385 @@ def full_step(dl):
                           losses=losses, step_ms=times)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the on-device pretrain augmentation
+# ---------------------------------------------------------------------------
+
+AUG_N, AUG_SRC, AUG_OUT = 32, (256, 256), (224, 224)
+N_DRAWS = 4096
+AUG_ATOL = 1e-5  # float32 images in [0, 1]; products summed in other orders
+
+
+def to_device(params, device):
+    """A nest of NamedTuples of tensors (the augmentation's parameters) on
+    ``device``; host integers (the jitter orders) stay as they are."""
+    if isinstance(params, torch.Tensor):
+        return params.to(device)
+    if isinstance(params, tuple):
+        return type(params)(*(to_device(p, device) for p in params))
+    return params
+
+
+def crop_law(m, src_hw, scale, ratio, attempts=10, seed=0):
+    """(area fraction, log aspect) of ``m`` crops drawn by the law of
+    ``cp2_tpu/augment/functional.py:34-88`` in numpy: the first of
+    ``attempts`` candidates that fits, else the centre crop."""
+    rs = np.random.RandomState(seed)
+    height, width = src_hw
+    area = float(height * width)
+    target = area * rs.uniform(scale[0], scale[1], (m, attempts))
+    aspect = np.exp(rs.uniform(np.log(ratio[0]), np.log(ratio[1]), (m, attempts)))
+    ws, hs = np.sqrt(target * aspect), np.sqrt(target / aspect)
+    valid = (ws <= width) & (hs <= height)
+    first, any_valid = valid.argmax(1), valid.any(1)
+    rows = np.arange(m)
+    w = np.where(any_valid, ws[rows, first], float(width))  # square source: fallback
+    h = np.where(any_valid, hs[rows, first], float(height))  # is the whole frame
+    return h * w / area, np.log(w / h)
+
+
+def erase_law(m, hw, scale, ratio, seed=0):
+    """Erased area fraction of ``m`` rectangles drawn by the law of
+    ``functional.py:458-482`` in numpy (sides rounded half to even)."""
+    rs = np.random.RandomState(seed)
+    h, w = hw
+    area = h * w * rs.uniform(scale[0], scale[1], m)
+    aspect = np.exp(rs.uniform(np.log(ratio[0]), np.log(ratio[1]), m))
+    eh = np.clip(np.round(np.sqrt(area * aspect)), 1, h)
+    ew = np.clip(np.round(np.sqrt(area / aspect)), 1, w)
+    return eh * ew / (h * w)
+
+
+def check_samplers(cfg):
+    """Each sampler on the card's generator over ``N_DRAWS`` draws: the mean
+    of each drawn quantity within 4 standard errors of its expectation (the
+    law's probability, or a numpy draw of the law over 10^6 samples)."""
+    from cp2_tpu_torch.augment import functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    crop = F.sample_resized_crop(g, N_DRAWS, AUG_SRC, cfg.crop_scale, cfg.crop_ratio,
+                                 cfg.flip_p)
+    jitter = F.sample_color_jitter(g, N_DRAWS, p=cfg.jitter_p)
+    gray = F.sample_gate(g, N_DRAWS, cfg.grayscale_p)
+    blur = F.sample_gaussian_blur(g, N_DRAWS, cfg.blur_sigma, cfg.blur_p)
+    erase = F.sample_random_erase(g, N_DRAWS, AUG_OUT, cfg.erase_scale, cfg.erase_ratio)
+    if not all(t.device.type == "cuda" for t in (*crop, jitter.apply, gray, *blur, *erase)):
+        raise SystemExit("a sampler drew off the card")
+    law_area, law_aspect = crop_law(10 ** 6, AUG_SRC, cfg.crop_scale, cfg.crop_ratio)
+    law_erase = erase_law(10 ** 6, AUG_OUT, cfg.erase_scale, cfg.erase_ratio)
+    drawn = {
+        "crop area fraction": ((crop.h * crop.w).double() / (AUG_SRC[0] * AUG_SRC[1]),
+                               law_area.mean(), law_area.std()),
+        "crop log aspect": (torch.log(crop.w / crop.h).double(), law_aspect.mean(),
+                            law_aspect.std()),
+        "flip rate": (crop.flip.double(), cfg.flip_p, None),
+        "jitter gate rate": (jitter.apply.double(), cfg.jitter_p, None),
+        "grayscale gate rate": (gray.double(), cfg.grayscale_p, None),
+        "blur gate rate": (blur.apply.double(), cfg.blur_p, None),
+        "erase area fraction": ((erase.eh * erase.ew).double() / (AUG_OUT[0] * AUG_OUT[1]),
+                                law_erase.mean(), law_erase.std()),
+    }
+    for name, (x, want, sd) in drawn.items():
+        mean = float(x.mean())
+        sd = math.sqrt(want * (1 - want)) if sd is None else sd
+        tol = 4 * sd / math.sqrt(N_DRAWS)
+        ok = abs(mean - want) <= tol
+        log(f"  sampler {name:20s}: {mean:.5f} over {N_DRAWS} draws, expected {want:.5f} "
+            f"+- {tol:.5f} (4 standard errors) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"sampler law off: {name}")
+
+
+def check_augment():
+    """Phase 6; returns the augmentation's times per batch."""
+    from cp2_tpu_torch.augment import AugmentConfig
+    from cp2_tpu_torch.augment.pipeline import (
+        apply_pretrain_augment, pretrain_batch_augment, sample_pretrain_params)
+
+    cfg = AugmentConfig(out_hw=AUG_OUT)
+    r = np.random.RandomState(0)
+    raw = {k: torch.from_numpy(r.randint(0, 256, (AUG_N, *AUG_SRC, 3), dtype=np.uint8))
+           for k in ("fg", "bg0", "bg1")}
+    raw_gpu = {k: v.cuda() for k, v in raw.items()}
+    params = sample_pretrain_params(torch.Generator().manual_seed(0), AUG_N, AUG_SRC, cfg)
+    ref = apply_pretrain_augment(raw, params, cfg)
+    ours = apply_pretrain_augment(raw_gpu, to_device(params, "cuda"), cfg)
+    torch.cuda.synchronize()
+    for key, want in ref.items():
+        got = ours[key].cpu()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise SystemExit(f"augment {key}: {got.dtype} {tuple(got.shape)} on the card, "
+                             f"{want.dtype} {tuple(want.shape)} on the CPU")
+        if key.startswith(("pixel_ids", "region_ids")):
+            ok, err = torch.equal(got, want), int((got != want).sum())
+            log(f"  {key:13s} card vs CPU: {err} ids differ {'ok' if ok else 'FAIL'}")
+        else:
+            err = float((got - want).abs().max())
+            ok = err <= AUG_ATOL
+            log(f"  {key:13s} card vs CPU: max abs diff {err:.2e} (atol {AUG_ATOL}) "
+                f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"augmentation on the card disagrees with the CPU: {key}")
+    for bg, erase in (("bg0", params.erase0), ("bg1", params.erase1)):
+        img = ours[bg]
+        for i in range(AUG_N):
+            y0, x0, eh, ew = (int(v[i]) for v in erase)
+            hole = img[i, y0:y0 + eh, x0:x0 + ew]
+            if hole.numel() == 0 or bool(hole.any()):
+                raise SystemExit(f"{bg}[{i}]: no zero rectangle at its erase")
+    log(f"  every background has its zero rectangle ({2 * AUG_N} of {2 * AUG_N})")
+    check_samplers(cfg)
+
+    # device time of the applies (a CUDA graph of them: the eager calls'
+    # events time the host, which issues ~10^3 small launches a batch), and
+    # the eager time of draws and applies as the step runs them
+    params_gpu = to_device(params, "cuda")
+    dev_ms = graph_ms(lambda: apply_pretrain_augment(raw_gpu, params_gpu, cfg), iters=5)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    eager_ms = cuda_ms(lambda: pretrain_batch_augment(gen, raw_gpu, cfg), iters=10, warmup=2)
+    log(f"  augmentation, 3 x {AUG_N} frames {AUG_SRC} -> {AUG_OUT}: applies {dev_ms:.2f} "
+        f"device ms per batch (CUDA graph); draws + applies eager {eager_ms:.2f} ms per batch "
+        f"(CUDA events); on {gpu_line()}")
+    return {"device_ms": dev_ms, "eager_ms": eager_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the pretrain CLI on the card
+# ---------------------------------------------------------------------------
+
+CLI_BATCH, CLI_STEPS_PER_EPOCH, CLI_EPOCHS = 32, 12, 2
+CLI_WORK = os.path.join("work_dirs", "chip_smoke_cli")
+
+
+def write_png(path, rgb: np.ndarray) -> None:
+    """An 8-bit RGB, non-interlaced PNG, filter 0 on every row, with zlib."""
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def synthetic_frames(directory, count, hw=(256, 256), seed=0):
+    """``count`` smooth random RGB frames as PNGs with ``train`` stems."""
+    os.makedirs(directory, exist_ok=True)
+    r = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, hw[0]), np.linspace(0, 1, hw[1]), indexing="ij")
+    paths = []
+    for i in range(count):
+        f = r.uniform(1, 6, (3, 2))
+        ph = r.uniform(0, 2 * np.pi, (3,))
+        img = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (f[c, 0] * yy + f[c, 1] * xx) + ph[c])
+                        for c in range(3)], axis=-1)
+        img += 0.05 * r.rand(*hw, 1)
+        path = os.path.join(directory, f"train_{i:04d}.png")
+        write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        paths.append(path)
+    return paths, img
+
+
+def probe_decoders():
+    """What this machine offers for decoding: PIL, g++, libpng/libjpeg."""
+    found = {
+        "PIL": importlib.util.find_spec("PIL") is not None,
+        "g++": shutil.which("g++") is not None,
+        "png.h": os.path.exists("/usr/include/png.h"),
+        "jpeglib.h": any(os.path.exists(p) for p in (
+            "/usr/include/jpeglib.h", "/usr/include/x86_64-linux-gnu/jpeglib.h")),
+        "matplotlib": importlib.util.find_spec("matplotlib") is not None,
+    }
+    log(f"  decoder probe: {found}")
+    return found
+
+
+# the CP2 step keys of metrics_level 1 (cp2_tpu/ssl/objectives.py:220-243)
+CP2_STEP_KEYS = (
+    ["train/loss_step", "train/loss_ins_step", "train/loss_dense_step", "train/acc_ins_step",
+     "train/acc_seg_step", "train/cross_image_variance_source_step",
+     "train/cross_image_variance_target_step", "step/average_iou",
+     "step/average_masked_iou", "train/+ive_scores_step", "train/-ive_scores_step"]
+    + [f"step/dense_per_sample_{s}_{side}_scores" for side in ("positive", "negative")
+       for s in ("average", "lower", "median", "upper")]
+    + [f"step/instance_{s}_scores" for s in ("average_positive", "average_negative",
+                                             "lower_negative", "median_negative",
+                                             "upper_negative")]
+)
+
+
+class StepClock:
+    """Wraps the CLI's ``make_pretrain_step`` so that every step ends in
+    ``torch.cuda.synchronize()``.  Each step gets two times: the call
+    itself (augmentation and step), and the time since the previous step
+    ended, which adds the wait for the batch and the loop's own host work
+    (logging, the learning rate)."""
+
+    def __init__(self, make):
+        self.make = make
+        self.rows = []  # (metrics_level, call s, since the previous end s, loss)
+        self.last = None
+
+    def __call__(self, hp, output_stride, *, metrics_level=0, **kw):
+        step_fn = self.make(hp, output_stride, metrics_level=metrics_level, **kw)
+
+        def timed(state, batch, seed=0):
+            start = time.perf_counter()
+            state, metrics = step_fn(state, batch, seed)
+            loss = metrics["loss"].item()
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.rows.append((metrics_level, now - start, now - self.last, loss))
+            self.last = now
+            return state, metrics
+
+        return timed
+
+
+def check_copy_stream():
+    """Batches staged by ``DevicePrefetcher`` + ``HostToDevice`` (pinned,
+    ``non_blocking`` on the copy stream) read back equal to their host
+    arrays on the compute stream, while that stream is kept busy so that
+    copies and compute overlap and the allocator recycles staged memory."""
+    from cp2_tpu_torch.data.prefetch import DevicePrefetcher, HostToDevice
+
+    r = np.random.RandomState(3)
+    host = [{k: r.randint(0, 256, (CLI_BATCH, 256, 256, 3), dtype=np.uint8)
+             for k in ("fg", "bg0", "bg1")} for _ in range(8)]
+    busy = torch.randn(4096, 4096, device="cuda")
+    for i, staged in enumerate(DevicePrefetcher(iter(host), HostToDevice("cuda"), depth=2)):
+        for _ in range(4):
+            busy = busy @ busy
+            busy = busy / busy.norm()
+        got = staged.wait()
+        sums = {k: int(v.sum(dtype=torch.int64)) for k, v in got.items()}
+        for k, v in got.items():
+            if not torch.equal(v.cpu(), torch.from_numpy(host[i][k])) or \
+                    sums[k] != int(host[i][k].sum(dtype=np.int64)):
+                raise SystemExit(f"staged batch {i} {k} differs from its host array")
+        del got
+    log(f"  copy stream: {len(host)} staged batches equal their host arrays")
+
+
+def run_cli(pretrain, argv, clock):
+    args = pretrain.get_args(argv)
+    clock.last = time.perf_counter()
+    return pretrain.main(args)
+
+
+def check_cli(dl):
+    """Phase 7; returns the CLI's launches and numbers."""
+    from cp2_tpu_torch.train import pretrain
+
+    probe = probe_decoders()
+    check_copy_stream()
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths, last = synthetic_frames(os.path.join(CLI_WORK, "data"),
+                                   CLI_BATCH * CLI_STEPS_PER_EPOCH)
+    log(f"  wrote {len(paths)} PNGs of 256x256 in {time.perf_counter() - t0:.1f} s")
+    if probe["PIL"]:  # the writer against the decoder the loader uses
+        from PIL import Image
+
+        with Image.open(paths[-1]) as im:
+            if not np.array_equal(np.asarray(im.convert("RGB")),
+                                  (np.clip(last, 0, 1) * 255).astype(np.uint8)):
+                raise SystemExit("PIL decodes the written PNG to other pixels")
+    logs = os.path.join(CLI_WORK, "logs")
+    steps = CLI_STEPS_PER_EPOCH * CLI_EPOCHS
+    common = ["--run_id", "smoke", "--log_dir", logs, "--data_dirs", os.path.join(CLI_WORK, "data"),
+              "-b", str(CLI_BATCH), "--img_height", "224", "--img_width", "224",
+              "--metrics_level", "1", "--scalar-freq", "3", "--print-freq", "2",
+              "--visual-freq", "1" if probe["matplotlib"] else "0"]
+    clock = StepClock(pretrain.make_pretrain_step)
+    pretrain.make_pretrain_step = clock
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dl.reset_launch_counts()  # the main path's run starts here
+        state = run_cli(pretrain, common + ["--epochs", str(CLI_EPOCHS),
+                                            "--max_steps", str(steps - 1)], clock)
+        launches = dict(dl.LAUNCHES)  # read just after the run
+        peak = torch.cuda.max_memory_allocated()
+        rows = list(clock.rows)
+        ptr = state.queue_ptr
+        if state.step != steps or ptr != steps * CLI_BATCH % state.queue.shape[0]:
+            raise SystemExit(f"CLI ran {state.step} steps, queue_ptr {ptr}")
+        if state.queue.device.type != "cuda":
+            raise SystemExit("the CLI's state is not on the card")
+        del state
+        clock.rows = []
+        dl.reset_launch_counts()
+        resumed = run_cli(pretrain, common + ["--epochs", str(CLI_EPOCHS + 1),
+                                              "--max_steps", str(steps),
+                                              "--resume", os.path.join(logs, "smoke")], clock)
+        resume_launches = dict(dl.LAUNCHES)
+    finally:
+        pretrain.make_pretrain_step = clock.make
+    if resumed.step != steps + 1 or resumed.queue_ptr != (ptr + CLI_BATCH) % resumed.queue.shape[0]:
+        raise SystemExit(f"resume: step {resumed.step}, queue_ptr {resumed.queue_ptr}")
+    log(f"  resumed from step {steps}: step {resumed.step}, queue_ptr {ptr} -> "
+        f"{resumed.queue_ptr}")
+    del resumed
+
+    losses = [row[-1] for row in rows + clock.rows]
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"a CLI loss is not finite: {losses}")
+    for name in ("dense_pair_loss_fwd", "dense_pair_loss_bwd"):
+        if launches.get(name) != steps or resume_launches.get(name) != 1:
+            raise SystemExit(f"{name}: {launches.get(name)} launches in {steps} CLI steps, "
+                             f"{resume_launches.get(name)} in 1 resumed step")
+    log(f"  launches: {launches} in {steps} steps; {resume_launches} in the resumed step")
+
+    run_dir = os.path.join(logs, "smoke")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        metric_rows = [json.loads(line) for line in f]
+    step_rows = [r for r in metric_rows if "train/loss_step" in r]
+    epoch_rows = [r for r in metric_rows if "train/loss" in r]
+    missing = [k for r in step_rows for k in CP2_STEP_KEYS if not math.isfinite(r.get(k, math.nan))]
+    if not step_rows or missing or len(epoch_rows) != CLI_EPOCHS + 1:
+        raise SystemExit(f"metrics.jsonl: {len(step_rows)} step rows, missing/non-finite "
+                         f"{sorted(set(missing))}, {len(epoch_rows)} epoch rows")
+    with open(os.path.join(run_dir, "log-pretrain.txt")) as f:
+        decoder = [line.split("decoder: ")[1].strip() for line in f if "decoder: " in line]
+    log(f"  metrics.jsonl: {len(step_rows)} step rows with every CP2 step key, "
+        f"{len(epoch_rows)} epoch rows; decoder {decoder[0]}")
+
+    # epoch 1 (after cuDNN's first choices and the allocator's growth): step
+    # calls by kind, leaving out the epoch's first step, which starts while
+    # the loaders decode their first batches; end to end over the whole
+    # epoch, and over it without that first step
+    steady = rows[CLI_STEPS_PER_EPOCH:]
+    start, rest = steady[0], steady[1:]
+    quiet = [call * 1e3 for lvl, call, _, _ in rest if lvl == 0]
+    logged = [call * 1e3 for lvl, call, _, _ in rest if lvl > 0]
+    ips = CLI_BATCH * len(steady) / sum(gap for _, _, gap, _ in steady)
+    ips_rest = CLI_BATCH * len(rest) / sum(gap for _, _, gap, _ in rest)
+    log(f"  step call ms: {['%.1f' % (r[1] * 1e3) for r in rows]}; since the previous "
+        f"step's end: {['%.1f' % (r[2] * 1e3) for r in rows]} (epochs 0 and 1)")
+    half = CLI_STEPS_PER_EPOCH // 2
+    halves = [statistics.median(r[1] * 1e3 for r in part)
+              for part in (steady[1:half], steady[half:])]
+    log(f"  epoch 1: step call median {halves[0]:.1f} ms over steps 1-{half - 1}, "
+        f"{halves[1]:.1f} ms over steps {half}-{CLI_STEPS_PER_EPOCH - 1}")
+    log(f"  epoch 1: quiet step median {statistics.median(quiet):.2f} ms ({len(quiet)}), "
+        f"logged step median {statistics.median(logged):.2f} ms ({len(logged)}), first step "
+        f"{start[1] * 1e3:.1f} ms ({start[2] * 1e3:.1f} ms since the epoch's start); end to "
+        f"end {ips:.1f} images/s, {ips_rest:.1f} without the first step (loader, copy and "
+        f"augmentation included); peak memory {peak / 2**30:.2f} GiB; on {gpu_line()}")
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    return launches, dict(
+        steps=steps, step_call_ms=[r[1] * 1e3 for r in rows],
+        step_gap_ms=[r[2] * 1e3 for r in rows], step_levels=[r[0] for r in rows],
+        quiet_ms_median=statistics.median(quiet), logged_ms_median=statistics.median(logged),
+        epoch_first_step_ms=start[1] * 1e3, half_epoch_medians_ms=halves, images_per_s=ips,
+        images_per_s_without_epoch_start=ips_rest, peak_bytes=peak, decoder=decoder[0], probe=probe,
+        resume_launches=resume_launches)
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -475,9 +874,18 @@ def main() -> int:
 
     # phase 5: the full-width CP2 step
     log("full-width CP2 step:")
-    launches, step = full_step(dl)
+    step_launches, step = full_step(dl)
+
+    # phase 6: the on-device augmentation
+    log("augment:")
+    aug_ms = check_augment()
+
+    # phase 7: the pretrain CLI, this slice's main path
+    log("pretrain CLI:")
+    launches, cli = check_cli(dl)
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
-        json.dump({"card": card, **step}, f, indent=1)
+        json.dump({"card": card, **step, "step_launches": step_launches,
+                   "augment": aug_ms, "cli": cli}, f, indent=1)
 
     kernels = [
         {"name": "dense_pair_loss_fwd", "route": "cuda",
@@ -489,6 +897,7 @@ def main() -> int:
          "bound_by": flagship["fwd_bound_by"], "library_ms": None,
          "fp32_fma_bound_ms": flagship["fwd_fp32_fma_bound_ms"],
          "eager_ms": flagship["fwd_eager_ms"],
+         "launches_step_phase": step_launches["dense_pair_loss_fwd"],
          "check": "pass", "shape": list(STEP_SHAPE)},
         {"name": "dense_pair_loss_bwd", "route": "cuda",
          "source": "cp2_tpu_torch/csrc/dense_loss.cu",
@@ -499,6 +908,7 @@ def main() -> int:
          "bound_by": flagship["bwd_bound_by"], "library_ms": None,
          "fp32_fma_bound_ms": flagship["bwd_fp32_fma_bound_ms"],
          "eager_ms": flagship["bwd_eager_ms"],
+         "launches_step_phase": step_launches["dense_pair_loss_bwd"],
          "check": "pass", "shape": list(STEP_SHAPE)},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

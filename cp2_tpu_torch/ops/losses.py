@@ -1,13 +1,15 @@
-"""Loss functions of the CP2 path: InfoNCE, MoCo logits, CP2 dense loss.
+"""Loss functions: InfoNCE, MoCo logits, CP2 dense loss, segmentation CE,
+negative reshaping and row quantiles.
 
-Port of the CP2 subset of ``cp2_tpu/ops/losses.py``.  The TPU-driven
-rewrites there (sort-free top-k, gather-free selects) become the plain
-torch calls they stand in for.
+Port of ``cp2_tpu/ops/losses.py`` (BYOL's loss waits for its objective).
+The TPU-driven rewrites there (sort-free top-k, gather-free selects) become
+the plain torch calls they stand in for: ``torch.sort``, ``torch.topk``,
+``gather``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +46,93 @@ def cp2_dense_loss(logits_dense: torch.Tensor, labels_dense: torch.Tensor,
     num = ((-log_sm).reshape(n, -1) * labels).sum(dim=1)
     den = labels.sum(dim=1).clamp_min(1e-12)
     return (num / den).mean()
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          ignore_index: Optional[int] = None,
+                          sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean pixel CE of NHWC logits against integer labels (N, H, W)
+    (``losses.py:78-106``).  A label outside ``[0, classes)`` picks 0, as
+    the JAX compare-and-select does; ``sample_mask`` (N,) bool drops whole
+    rows from the mean."""
+    log_probs = F.log_softmax(logits, dim=-1)
+    classes = log_probs.shape[-1]
+    labels = labels.long()
+    in_range = (labels >= 0) & (labels < classes)
+    picked = log_probs.gather(-1, labels.clamp(0, classes - 1)[..., None])[..., 0]
+    picked = torch.where(in_range, picked, 0.0)
+    if ignore_index is None and sample_mask is None:
+        return -picked.mean()
+    valid = torch.ones_like(picked, dtype=torch.bool)
+    if ignore_index is not None:
+        valid &= labels != ignore_index
+    if sample_mask is not None:
+        valid &= sample_mask.reshape((-1,) + (1,) * (picked.dim() - 1))
+    return -(picked * valid).sum() / valid.sum().clamp_min(1)
+
+
+def negative_reshape(logits_dense: torch.Tensor, labels_dense: torch.Tensor,
+                     negative_type: str, negative_scale: float,
+                     negative_average: Optional[torch.Tensor] = None,
+                     negative_median: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Post-process negative pair similarities (``losses.py:109-167``).
+
+      FIXED:   neg -> 2·sigmoid(scale·neg) - 1
+      AVERAGE: neg -> 2·sigmoid(scale·(neg - mean_neg)) - 1
+      MEDIAN:  neg -> 2·sigmoid(scale·(neg - median_neg)) - 1
+      HARD:    negatives above their global 75th percentile times 1.5
+      NONE:    identity
+    """
+    is_neg = ~labels_dense.bool()
+
+    def squash(x):
+        return 2.0 / (1.0 + torch.exp(-x * negative_scale)) - 1.0
+
+    if negative_type == "NONE":
+        return logits_dense
+    if negative_type == "FIXED":
+        return torch.where(is_neg, squash(logits_dense), logits_dense)
+    if negative_type in ("AVERAGE", "MEDIAN"):
+        shift = negative_average if negative_type == "AVERAGE" else negative_median
+        shift = shift.detach().reshape(-1, 1, 1)
+        return torch.where(is_neg, squash(logits_dense - shift), logits_dense)
+    if negative_type == "HARD":
+        # the linear-law 75th percentile of the negatives: sort by value,
+        # then stably by "is positive", so the negatives lead in order
+        flat = logits_dense.reshape(-1).float()
+        neg = is_neg.reshape(-1)
+        by_value, order = torch.sort(flat)
+        _, by_label = torch.sort((~neg[order]).to(torch.int32), stable=True)
+        svals = by_value[by_label]
+        n = neg.sum()
+        pos = 0.75 * (n.float() - 1.0)
+        low = torch.clamp(torch.floor(pos), min=0.0)
+        frac = pos - low
+        lo_v = svals[low.long().reshape(1)][0]
+        hi_v = svals[torch.clamp(torch.ceil(pos), min=0.0).long().reshape(1)][0]
+        q75 = torch.where(n > 0, lo_v * (1.0 - frac) + hi_v * frac,
+                          torch.tensor(float("nan"), device=flat.device))
+        hard = is_neg & (logits_dense > q75)
+        return torch.where(hard, logits_dense * 1.5, logits_dense)
+    raise NotImplementedError(f"negative_type={negative_type!r}")
+
+
+def row_quantiles_linear(x: torch.Tensor, qs=(0.25, 0.5, 0.75)) -> torch.Tensor:
+    """Per-row quantiles at static fractions, ``(len(qs), N)``
+    (``losses.py:170-193``): one sort, index q·(K−1), floor/ceil blend
+    ``a + (b − a)·frac`` — the law as written there, not ``torch.quantile``
+    (which differs on NaN and refuses more than 2²⁴ elements)."""
+    s = torch.sort(x, dim=1).values
+    k = x.shape[1]
+    rows = []
+    for q in qs:
+        pos = q * (k - 1)
+        i0 = int(pos)
+        i1 = min(i0 + 1, k - 1)
+        frac = pos - i0
+        a, b = s[:, i0], s[:, i1]
+        rows.append(a + (b - a) * frac)
+    return torch.stack(rows)
 
 
 def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,

@@ -5,8 +5,12 @@ one pure jitted ``state -> state`` transition; here the step runs eagerly
 and updates the state's modules, optimizer and queue in place, in the
 same order: EMA update BEFORE the key forward (builder.py:726,1272), key
 forward in train mode without grad, query forward and backward, optimizer
-update, enqueue.  The MoCo/BYOL/DenseCL branches and the fused on-device
-augmentation are not ported yet.
+update, enqueue.  The MoCo/BYOL/DenseCL branches are not ported yet.
+
+Per-step randomness: the JAX step folds the step counter into one base
+key (``jax.random.fold_in(rng, state.step)``); here each step seeds a
+fresh generator on the state's device from (base seed, ``state.step``)
+(``step_generator``), so a resumed run replays the same draws.
 """
 
 from __future__ import annotations
@@ -43,8 +47,9 @@ def dense_output_stride_of(model_cfg: dict, backbone_type: BackboneType,
                                      unet_truncated_dec_blocks)
 
 
-# the CP2 epoch-aggregate family, in the order of the JAX package's
-# epoch_scalar_names(PretrainType.CP2) (builder.py:1608-1664)
+# the CP2 epoch-aggregate family, (epoch name, step source), in the order
+# of the JAX package's epoch_scalar_names(PretrainType.CP2)
+# (builder.py:1608-1664)
 CP2_EPOCH_SCALARS = (
     ("train/loss", "train/loss_step"),
     ("train/acc_ins", "train/acc_ins_step"),
@@ -56,6 +61,25 @@ CP2_EPOCH_SCALARS = (
 )
 
 
+def epoch_scalar_names(pt: PretrainType) -> Tuple[str, ...]:
+    """The scalars the reference averages over every step into its epoch
+    aggregates (builder.py:1608-1664); CP2 only in the port so far."""
+    if pt != PretrainType.CP2:
+        raise NotImplementedError(f"pretrain_type={pt} is not ported yet")
+    return tuple(name for name, _ in CP2_EPOCH_SCALARS)
+
+
+_SEED_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: (seed, step) -> one seed
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from (base seed, step): every step
+    draws from its own stream, and the same step draws the same values."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(seed) * _SEED_MIX + int(step)) % (1 << 63))
+    return gen
+
+
 def make_pretrain_step(
     hp: SSLHyperParams,
     output_stride: int,
@@ -65,22 +89,24 @@ def make_pretrain_step(
     augment_fn: Callable | None = None,
 ) -> Callable[[PretrainState, Dict[str, torch.Tensor]],
               Tuple[PretrainState, Dict[str, torch.Tensor]]]:
-    """Build ``step_fn(state, batch) -> (state, metrics)`` for CP2.
+    """Build ``step_fn(state, batch, seed=0) -> (state, metrics)`` for CP2.
 
     Differs from the JAX signature in what PyTorch makes unnecessary: the
-    model and optimizer live in the state, and no PRNG key is passed (the
-    contrast head has no dropout and augmentation is not ported yet, so
-    ``augment_fn`` must be None and the batch comes pre-augmented, NHWC).
-    ``metrics_level`` defaults to 0 because level 1 needs the
-    correspondence metrics, not ported yet (it raises).  ``epoch_scalars``
-    adds ``metrics["_epoch_vec"]`` in ``CP2_EPOCH_SCALARS`` order.
+    model and optimizer live in the state, and the base PRNG key is an
+    integer ``seed``.  ``augment_fn(generator, raw) -> batch`` turns raw
+    frames into the CP2 batch on the step's device, drawing from
+    ``step_generator(seed, state.step, device)``; without it the batch comes
+    pre-augmented, NHWC.  ``metrics_level`` 1 adds the reference's scalar
+    families, 2 the ``_visual/*`` arrays.  ``epoch_scalars`` adds
+    ``metrics["_epoch_vec"]`` in ``CP2_EPOCH_SCALARS`` order.
     """
     if hp.pretrain_type != PretrainType.CP2:
         raise NotImplementedError(f"pretrain_type={hp.pretrain_type} is not ported yet")
-    if augment_fn is not None:
-        raise NotImplementedError("on-device augmentation is not ported yet")
 
-    def step_fn(state: PretrainState, batch):
+    def step_fn(state: PretrainState, batch, seed: int = 0):
+        if augment_fn is not None:
+            device = state.queue.device
+            batch = augment_fn(step_generator(seed, state.step, device), batch)
         state.ema_update(hp.momentum)
         key_out = obj.cp2_key_forward(state.ema_model, batch)
         loss, aux = obj.cp2_objective(

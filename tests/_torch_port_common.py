@@ -157,3 +157,151 @@ def assert_trees_close(ours, ref, tol: float, path: str = "") -> None:
             assert_trees_close(ours[key], value, tol, where)
         else:
             assert_close(ours[key], value, tol, where)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's augmentation draws, replayed into the port's parameters
+# ---------------------------------------------------------------------------
+#
+# torch's generators cannot reproduce JAX's threefry draws, so the tests
+# hold the port's deterministic applies against the JAX ops on the draws the
+# JAX ops make: each helper takes the per-image keys a JAX op receives and
+# calls the same ``jax.random`` laws on the same key splits
+# (``cp2_tpu/augment/functional.py:50,65,264,338,472``,
+# ``cp2_tpu/augment/pipeline.py:53,65,97-98,132-133,141,292``).  A wrong
+# replay makes the comparison it feeds fail.
+
+
+def _tensor(x, dtype=None):
+    import torch
+
+    t = torch.from_numpy(np.array(x))
+    return t.to(dtype) if dtype is not None else t
+
+
+def jax_split(keys, num: int):
+    """(N, 2) keys → (N, num, 2): ``jax.random.split`` per image."""
+    import jax
+
+    return jax.vmap(lambda k: jax.random.split(k, num))(keys)
+
+
+def _uniform(keys, lo, hi):
+    import jax
+
+    return jax.vmap(lambda k: jax.random.uniform(k, minval=lo, maxval=hi))(keys)
+
+
+def _bernoulli(keys, p):
+    import jax
+
+    return jax.vmap(lambda k: jax.random.bernoulli(k, p))(keys)
+
+
+def replay_crop(keys, src_hw, scale, ratio, flip_p):
+    """``sample_resized_crop`` on each key, as the port's ``CropParams``."""
+    import jax
+
+    from cp2_tpu.augment import functional as JF
+    from cp2_tpu_torch.augment import functional as F
+
+    c = jax.vmap(lambda k: JF.sample_resized_crop(k, src_hw, scale, ratio, flip_p))(keys)
+    return F.CropParams(*(_tensor(v) for v in (c.y0, c.x0, c.h, c.w, c.flip)))
+
+
+def replay_jitter(keys, brightness, contrast, saturation, hue, p, order=0):
+    """The factors and gate ``color_jitter(key, ...)`` draws."""
+    from cp2_tpu_torch.augment import functional as F
+
+    k = jax_split(keys, 5)
+    return F.JitterParams(
+        brightness=_tensor(_uniform(k[:, 0], *brightness)),
+        contrast=_tensor(_uniform(k[:, 1], *contrast)),
+        saturation=_tensor(_uniform(k[:, 2], *saturation)),
+        hue=_tensor(_uniform(k[:, 3], *hue)),
+        apply=_tensor(_bernoulli(k[:, 4], p)),
+        order=int(order),
+    )
+
+
+def replay_gray(keys, p):
+    """The gate ``to_grayscale(key, img, p)`` draws."""
+    return _tensor(_bernoulli(keys, p))
+
+
+def replay_blur(keys, sigma_range, p):
+    """The sigma and gate ``gaussian_blur(key, ...)`` draws."""
+    from cp2_tpu_torch.augment import functional as F
+
+    k = jax_split(keys, 2)
+    return F.BlurParams(sigma=_tensor(_uniform(k[:, 0], *sigma_range)),
+                        apply=_tensor(_bernoulli(k[:, 1], p)))
+
+
+def replay_erase(keys, hw, scale, ratio):
+    """The rectangle ``random_erase(key, img, scale, ratio)`` draws."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from cp2_tpu_torch.augment import functional as F
+
+    h, w = hw
+    k = jax_split(keys, 4)
+    area = h * w * _uniform(k[:, 0], *scale)
+    aspect = jnp.exp(_uniform(k[:, 1], jnp.log(ratio[0]), jnp.log(ratio[1])))
+    eh = jnp.clip(jnp.round(jnp.sqrt(area * aspect)), 1, h).astype(jnp.int32)
+    ew = jnp.clip(jnp.round(jnp.sqrt(area / aspect)), 1, w).astype(jnp.int32)
+    y0 = jax.vmap(lambda kk, e: jax.random.randint(kk, (), 0, jnp.maximum(h - e + 1, 1)))(
+        k[:, 2], eh)
+    x0 = jax.vmap(lambda kk, e: jax.random.randint(kk, (), 0, jnp.maximum(w - e + 1, 1)))(
+        k[:, 3], ew)
+    return F.EraseParams(*(_tensor(v, torch.int64) for v in (y0, x0, eh, ew)))
+
+
+def _replay_view(k_crop, k_photo, src_hw, cfg, order):
+    """A view's crop (``_one_view``) and ``_photometric``: k_j, k_g, k_b."""
+    from cp2_tpu_torch.augment.pipeline import ViewParams
+
+    photo = jax_split(k_photo, 3)
+    return ViewParams(
+        crop=replay_crop(k_crop, src_hw, cfg.crop_scale, cfg.crop_ratio, cfg.flip_p),
+        jitter=replay_jitter(photo[:, 0], cfg.brightness, cfg.contrast, cfg.saturation,
+                             cfg.hue, cfg.jitter_p, order),
+        gray=replay_gray(photo[:, 1], cfg.grayscale_p),
+        blur=replay_blur(photo[:, 2], cfg.blur_sigma, cfg.blur_p),
+    )
+
+
+def replay_jax_pretrain_params(rng, n: int, src_hw, cfg):
+    """The port's ``PretrainAugParams`` holding exactly the draws that the
+    JAX package's ``pretrain_batch_augment(rng, raw, cfg)`` makes on ``n``
+    frames of ``src_hw``; ``cfg`` is the port's ``AugmentConfig``, whose
+    fields are the JAX one's."""
+    import jax
+
+    from cp2_tpu_torch.augment.pipeline import PretrainAugParams
+
+    def orders(key, shape):
+        if not cfg.jitter_random_order:
+            return [0] * max(1, int(np.prod(shape)))
+        return [int(o) for o in np.ravel(jax.random.randint(key, shape, 0, 24))]
+
+    k_fg, k_b0, k_b1 = jax.random.split(rng, 3)
+    # two_crop_augment_batch: k_order, rng = split; split(rng, 2n) → (n, 2, 2)
+    k_order, k = jax.random.split(k_fg)
+    order_ab = orders(k_order, (2,))
+    per_view = jax.random.split(k, n * 2).reshape(n, 2, 2)
+    views = []
+    for v in range(2):  # _one_view: k_crop, k_photo
+        k = jax_split(per_view[:, v], 2)
+        views.append(_replay_view(k[:, 0], k[:, 1], src_hw, cfg, order_ab[v]))
+    # background_augment_batch: k_order, rng = split; split(rng, n); per
+    # image k_crop, k_photo, k_erase
+    bgs, erases = [], []
+    for key in (k_b0, k_b1):
+        k_order, k = jax.random.split(key)
+        k = jax_split(jax.random.split(k, n), 3)
+        bgs.append(_replay_view(k[:, 0], k[:, 1], src_hw, cfg, orders(k_order, ())[0]))
+        erases.append(replay_erase(k[:, 2], cfg.out_hw, cfg.erase_scale, cfg.erase_ratio))
+    return PretrainAugParams(views[0], views[1], bgs[0], bgs[1], erases[0], erases[1])

@@ -9,6 +9,19 @@ tensors the port's step takes the plain dense loss.  Pinned after 1 and
 after 3 steps: the loss, params, the params' change, ema_params, both
 batch_stats trees, the queue, queue_ptr and step.
 
+Two more one-step runs take raw uint8 frames through the on-device
+augmentation, at ``metrics_level`` 1 and 2: the JAX step augments inside
+itself on ``fold_in(key, step)``, and the port's ``augment_fn`` applies
+those draws, replayed (``_torch_port_common.replay_jax_pretrain_params``).
+They pin every metric key and value, ``_visual/*`` arrays included, and
+the state.  The state after an augmented step is held at 2e-3 (update and
+all): this model's gradient on augmented frames is sensitive to rounding
+in its input, and the JAX step disagrees with itself by that much.  Fed
+its own augmentation once eagerly and once under ``jax.jit`` (which part
+by up to 1.5e-5 in the images), the JAX step's conv1 update parts by
+1.9e-3 of its largest element (2.15); the port, fed the eager images,
+parts from the eager-fed JAX step by 6.5e-4.
+
 Tolerance: rtol 1e-4 after 1 step and 1e-3 after 3, each with an absolute
 floor of the same fraction of the array's largest magnitude
 (``assert_close``).  Two deviations, measured on this model:
@@ -39,16 +52,20 @@ from flax import linen as nn
 from _torch_port_common import (
     BATCH,
     DIM,
+    HW,
     TINY_MODEL,
     assert_close,
     assert_trees_close,
     jax_encoder,
     pre_augmented_batch,
     random_flax_variables,
+    replay_jax_pretrain_params,
     to_plain_dict,
     torch_encoder,
     unit_queue,
 )
+from cp2_tpu.augment import AugmentConfig as JaxAugmentConfig
+from cp2_tpu.augment import pretrain_batch_augment as jax_pretrain_batch_augment
 from cp2_tpu.ssl import SSLHyperParams as JaxHyperParams
 from cp2_tpu.ssl.model import output_stride_of as jax_output_stride_of
 from cp2_tpu.ssl.state import PretrainState as JaxPretrainState
@@ -60,6 +77,7 @@ from cp2_tpu.ssl.train_step import (
 )
 from cp2_tpu.types import BackboneType as JaxBackboneType
 from cp2_tpu.types import PretrainType as JaxPretrainType
+from cp2_tpu_torch.augment import AugmentConfig, apply_pretrain_augment
 from cp2_tpu_torch.checkpoint.bridge import (
     load_pretrain_state_from_flax,
     pretrain_state_to_flax,
@@ -76,6 +94,7 @@ QUEUE_LEN = 64
 LR = {1: 0.1, 3: 1e-3}
 TOL = {1: 1e-4, 3: 1e-3}
 FAST_VARIANCE_TOL = 5e-2
+AUGMENTED_STATE_TOL = 2e-3
 
 
 class TwoPassBatchNorm(nn.BatchNorm):
@@ -95,7 +114,8 @@ def _initial_tree():
     }
 
 
-def _jax_run(tree, batches, lr, epoch_scalars, two_pass=True):
+def _jax_run(tree, batches, lr, epoch_scalars, two_pass=True, metrics_level=0,
+             augment=False):
     model = jax_encoder()
     hp = JaxHyperParams.for_variant(JaxPretrainType.CP2, dim=DIM, queue_len=QUEUE_LEN)
     tx = jax_make_optimizer("sgd", lr)
@@ -114,7 +134,9 @@ def _jax_run(tree, batches, lr, epoch_scalars, two_pass=True):
     step = jax.jit(jax_make_pretrain_step(
         model, tx, hp, jax_output_stride_of(TINY_MODEL),
         jax_backbone_output_stride_of(TINY_MODEL, JaxBackboneType.DEEPLABV3),
-        metrics_level=0, epoch_scalars=epoch_scalars,
+        metrics_level=metrics_level, epoch_scalars=epoch_scalars,
+        augment_fn=(lambda rng, raw: jax_pretrain_batch_augment(
+            rng, raw, JaxAugmentConfig(out_hw=(HW, HW)))) if augment else None,
     ))
     out = []
     with pytest.MonkeyPatch.context() as patch:
@@ -129,13 +151,13 @@ def _jax_run(tree, batches, lr, epoch_scalars, two_pass=True):
     return out
 
 
-def _torch_run(tree, batches, lr, epoch_scalars):
+def _torch_run(tree, batches, lr, epoch_scalars, metrics_level=0, augment_fn=None):
     hp = SSLHyperParams.for_variant(PretrainType.CP2, dim=DIM, queue_len=QUEUE_LEN)
     state = create_pretrain_state(torch_encoder(), make_optimizer("sgd", lr), hp,
                                   device="cpu")
     load_pretrain_state_from_flax(state, tree)
-    step = make_pretrain_step(hp, output_stride_of(TINY_MODEL),
-                              epoch_scalars=epoch_scalars, augment_fn=None)
+    step = make_pretrain_step(hp, output_stride_of(TINY_MODEL), metrics_level=metrics_level,
+                              epoch_scalars=epoch_scalars, augment_fn=augment_fn)
     out = []
     for batch in batches:
         state, metrics = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
@@ -214,3 +236,68 @@ def test_epoch_scalars_match_jax(runs):
         assert_close(metrics["_epoch_vec"], ref_metrics["_epoch_vec"], TOL[3], "_epoch_vec")
         assert metrics["loss"] == metrics["_epoch_vec"][0]
     _states_close(torch_out[-1][0], jax_out[-1][0], start, TOL[3], 3)
+
+
+RAW_HW = (72, 80)
+
+
+@pytest.fixture(scope="module")
+def augmented_runs():
+    """``get(metrics_level)`` → (JAX run, port run) of one step on raw uint8
+    frames, augmented on the device: the JAX step's own draws, replayed
+    into the port's ``augment_fn``."""
+    tree = _initial_tree()
+    r = np.random.RandomState(5)
+    raw = {name: r.randint(0, 256, (BATCH, *RAW_HW, 3)).astype(np.uint8)
+           for name in ("fg", "bg0", "bg1")}
+    # the JAX step's augmentation key: split(fold_in(key, step 0))[0]
+    aug_rng = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), 0))[0]
+    cfg = AugmentConfig(out_hw=(HW, HW))
+    params = replay_jax_pretrain_params(aug_rng, BATCH, RAW_HW, cfg)
+    drawn_on = []
+
+    def augment_fn(generator, frames):
+        drawn_on.append(generator.device)
+        return apply_pretrain_augment(frames, params, cfg)
+
+    cache = {}
+
+    def get(metrics_level):
+        if metrics_level not in cache:
+            cache[metrics_level] = (
+                _jax_run(tree, [raw], LR[1], False, metrics_level=metrics_level, augment=True),
+                _torch_run(tree, [raw], LR[1], False, metrics_level=metrics_level,
+                           augment_fn=augment_fn))
+            assert drawn_on[-1] == torch.device("cpu")  # the state's device
+        return tree, cache[metrics_level]
+
+    return get
+
+
+@pytest.mark.parametrize("metrics_level", [1, 2])
+def test_cp2_step_metrics_match_jax(augmented_runs, metrics_level):
+    """The same metric keys as the JAX step at ``metrics_level`` 1 and 2,
+    each value (the ``_visual/*`` arrays at level 2 too) at rtol 1e-4.  The
+    absolute floor is 1e-4 of the metric's scale: 1 for the score
+    statistics (cosines in [-1, 1], whose quartiles may sit near 0), else
+    the value's own magnitude."""
+    _, (jax_out, torch_out) = augmented_runs(metrics_level)
+    ref_metrics, metrics = jax_out[-1][1], torch_out[-1][1]
+    assert set(metrics) == set(ref_metrics)
+    assert any(k.startswith("_visual/") for k in metrics) == (metrics_level == 2)
+    for key in ("step/average_iou", "step/dense_per_sample_median_negative_scores",
+                "step/instance_upper_negative_scores", "train/+ive_scores_step"):
+        assert key in metrics, key
+    for key, value in ref_metrics.items():
+        scale = 1.0 if "scores" in key else float(np.abs(value).max())
+        np.testing.assert_allclose(np.asarray(metrics[key], np.float64), value, rtol=TOL[1],
+                                   atol=TOL[1] * scale, err_msg=key)
+
+
+def test_augmented_step_matches_jax(augmented_runs):
+    """One step through ``augment_fn`` on raw frames: the loss equals the
+    JAX step's at 1e-4, which augmented inside itself, and the state after
+    it at 2e-3 (see the module docstring)."""
+    start, (jax_out, torch_out) = augmented_runs(1)
+    assert_close(torch_out[-1][1]["loss"], jax_out[-1][1]["loss"], TOL[1], "loss")
+    _states_close(torch_out[-1][0], jax_out[-1][0], start, AUGMENTED_STATE_TOL, 1)

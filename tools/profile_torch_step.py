@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's full-width CP2 step goes, on one NVIDIA card.
 
-    python3 tools/profile_torch_step.py [--steps 3]
+    python3 tools/profile_torch_step.py [--steps 3] [--cli]
 
 Builds the step as ``chip_smoke.py`` does (dilated ResNet-50 + ASPP-512,
 contrast dim 128, queue 65536, 224x224, batch 32, bfloat16 model, SGD),
@@ -21,6 +21,24 @@ warms it up, then:
    memory), the layout the step's activations take because
    ``SSLEncoder.dense`` permutes its NHWC input to an NCHW view.
 
+With ``--cli`` the step is the pretrain CLI's quiet step instead: raw
+(32, 256, 256, 3) uint8 ``fg``/``bg0``/``bg1`` frames on the card, the
+on-device augmentation inside the step (``augment_fn``, a generator per
+step), and the epoch scalars; steps 1 and 2 run on it, then
+
+5. the augmentation alone under ``torch.profiler``: its device time per
+   batch and its kernels by name, beside the step's device time;
+6. the logged step (``metrics_level`` 1) timed like step 1;
+7. the step of phase 5 on its pre-augmented batch, timed like step 1,
+   once with the images contiguous (N, H, W, C) as there, and once with
+   them laid out as the augmentation leaves them (its last resampling
+   product writes (N, W, H, C) in memory), to tell the layout's share of
+   the time apart from the rest;
+8. the quiet CLI step timed like step 1 while three host loaders, built
+   as the CLI builds them (PIL, ``--num-workers`` 4 and 1), decode
+   256x256 PNGs as fast as they can in the background, beside the frames
+   per second they decode: the host's share of the CLI's time.
+
 It prints the card's name and power limit beside the numbers and writes
 the profiler table and a Chrome trace under ``chiprun_out/``.
 """
@@ -30,8 +48,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import sys
+import threading
 import time
 
 import torch
@@ -42,8 +62,9 @@ sys.path.insert(0, ROOT)
 from chip_smoke import gpu_line, pre_augmented_batch  # noqa: E402
 
 
-def build_step():
+def build_step(cli=False):
     import cp2_tpu_torch
+    from cp2_tpu_torch.augment import AugmentConfig, pretrain_batch_augment
     from cp2_tpu_torch.config import Config
     from cp2_tpu_torch.ssl import SSLEncoder, SSLHyperParams, create_pretrain_state
     from cp2_tpu_torch.ssl import output_stride_of
@@ -56,8 +77,22 @@ def build_step():
     hp = SSLHyperParams.for_variant(PretrainType.CP2)
     model = SSLEncoder(model_cfg, dim=128, dtype=torch.bfloat16)
     state = create_pretrain_state(model, make_optimizer("sgd", 1e-3), hp, seed=0)
-    step = make_pretrain_step(hp, output_stride_of(model_cfg), augment_fn=None)
-    return state, step, pre_augmented_batch(32, 224, 0, "cuda")
+    if not cli:
+        step = make_pretrain_step(hp, output_stride_of(model_cfg), augment_fn=None)
+        return state, step, pre_augmented_batch(32, 224, 0, "cuda"), None
+    cfg = AugmentConfig(out_hw=(224, 224))
+
+    def augment_fn(generator, raw):
+        return pretrain_batch_augment(generator, raw, cfg)
+
+    def make(level):
+        return make_pretrain_step(hp, output_stride_of(model_cfg), metrics_level=level,
+                                  epoch_scalars=True, augment_fn=augment_fn)
+
+    g = torch.Generator().manual_seed(0)
+    raw = {k: torch.randint(0, 256, (32, 256, 256, 3), generator=g, dtype=torch.uint8).cuda()
+           for k in ("fg", "bg0", "bg1")}
+    return state, make(0), raw, (make(1), augment_fn)
 
 
 def aspp_branch_times(model):
@@ -100,9 +135,121 @@ def timed(state, step, batch, n):
     return state, times
 
 
+def cli_breakdown(state, raw, step_quiet, step_logged, augment_fn, n, step_device_ms):
+    """The augmentation alone under the profiler, by kernel; the logged
+    step's host-clock time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(2):
+        augment_fn(gen, raw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            augment_fn(gen, raw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    aug_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"augmentation alone, {n} batches: wall {wall_ms:.1f} ms, device {aug_ms:.1f} ms; "
+          f"{aug_ms / n:.2f} device ms per batch, {100 * aug_ms / step_device_ms:.1f} % of "
+          f"the CLI steps' device time")
+    kernels = []
+    for e in events[:15]:
+        ms = e.self_device_time_total / 1e3
+        kernels.append({"kernel": e.key, "device_ms_per_batch": ms / n, "calls": e.count,
+                        "share": ms / aug_ms})
+        print(f"  {ms / n:8.3f} ms/batch  {100 * ms / aug_ms:5.1f} %  x{e.count // n:<4d} "
+              f"{e.key[:100]}")
+    state, _ = timed(state, step_logged, raw, 2)  # warm-up
+    state, t_logged = timed(state, step_logged, raw, n)
+    print(f"logged step (metrics_level 1) ms: {['%.2f' % t for t in t_logged]} "
+          f"(median {statistics.median(t_logged):.2f})")
+
+    contention = decode_contention(state, step_quiet, raw, n)
+    step, batch = plain_step()
+    layouts = {}
+    for name, swap in (("contiguous NHWC", False), ("as augmented, (N, W, H, C) in memory", True)):
+        b = dict(batch)
+        if swap:
+            for k in ("img_a", "img_b"):
+                b[k] = b[k].transpose(1, 2).contiguous().transpose(1, 2)
+        state, _ = timed(state, step, b, 3)  # warm-up
+        state, t = timed(state, step, b, n)
+        layouts[name] = t
+        print(f"pre-augmented step, images {name}: {['%.2f' % x for x in t]} "
+              f"(median {statistics.median(t):.2f})")
+    return {"augment_wall_ms": wall_ms / n, "augment_device_ms": aug_ms / n,
+            "augment_kernels": kernels, "logged_step_ms": t_logged,
+            "pre_augmented_step_ms_by_layout": layouts, "decode_contention": contention}
+
+
+def decode_contention(state, step, raw, n):
+    """Quiet-step ms while three ``HostDataLoader``s decode PNGs flat out on
+    background threads (each batch dropped as soon as it is made), and the
+    frames per second they decode, for 4 and 1 decode threads per loader."""
+    from chip_smoke import synthetic_frames
+    from cp2_tpu_torch.data import HostDataLoader, PretrainDataSource
+
+    work = os.path.join(ROOT, "work_dirs", "profile_pngs")
+    files, _ = synthetic_frames(work, 128)
+    out = {}
+    for workers in (4, 1):
+        loaders = [HostDataLoader(PretrainDataSource(files, (256, 256)), 32, seed=seed,
+                                  num_workers=workers) for seed in (0, 1024, 2048)]
+        stop = threading.Event()
+        frames = [0]
+
+        def drain(loader):
+            epoch = 0
+            while not stop.is_set():
+                for batch in loader.epoch_iterator(epoch):
+                    frames[0] += len(batch["image"])
+                    if stop.is_set():
+                        break
+                epoch += 1
+
+        threads = [threading.Thread(target=drain, args=(ld,), daemon=True) for ld in loaders]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)  # let the decoders reach their pace
+        f0, t0 = frames[0], time.perf_counter()
+        state, t = timed(state, step, raw, n)
+        rate = (frames[0] - f0) / (time.perf_counter() - t0)
+        stop.set()
+        for th in threads:
+            th.join(timeout=30)
+        out[f"{workers}_workers"] = {"step_ms": t, "frames_per_s": rate}
+        print(f"quiet CLI step while 3 loaders x {workers} threads decode: "
+              f"{['%.2f' % x for x in t]} (median {statistics.median(t):.2f}); they decoded "
+              f"{rate:.0f} frames/s (a step takes 96)")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def plain_step():
+    """Phase 5's step (no augmentation) and its pre-augmented batch."""
+    from cp2_tpu_torch.ssl import SSLHyperParams, output_stride_of
+    from cp2_tpu_torch.ssl.train_step import make_pretrain_step
+    from cp2_tpu_torch.types import PretrainType
+    import cp2_tpu_torch
+    from cp2_tpu_torch.config import Config
+
+    cfg = Config.fromfile(os.path.join(os.path.dirname(cp2_tpu_torch.__file__),
+                                       "configs", "config_pretrain.py"))
+    step = make_pretrain_step(SSLHyperParams.for_variant(PretrainType.CP2),
+                              output_stride_of(dict(cfg.model)), augment_fn=None)
+    return step, pre_augmented_batch(32, 224, 0, "cuda")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--cli", action="store_true",
+                        help="profile the pretrain CLI's quiet step on raw frames")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -113,7 +260,8 @@ def main() -> int:
     print(f"device: {card}")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    state, step, batch = build_step()
+    state, step, batch, cli = build_step(args.cli)
+    tag = "cli_" if args.cli else ""
 
     state, _ = timed(state, step, batch, 3)  # warm-up
     state, t_default = timed(state, step, batch, args.steps)
@@ -141,7 +289,15 @@ def main() -> int:
     dense_ms = sum(e.self_device_time_total for e in dense) / 1e3
     print(f"dense pair-loss kernels: {dense_ms:.3f} ms over {args.steps} steps "
           f"({100 * dense_ms / device_ms:.2f} % of device time)")
-    prof.export_chrome_trace(os.path.join(out_dir, "torch_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"torch_{tag}step_trace.json"))
+    if cli is not None:
+        summary = cli_breakdown(state, batch, step, *cli, args.steps, device_ms)
+        summary.update({"card": card, "steps": args.steps, "step_ms_default": t_default,
+                        "profiled_wall_ms": wall_ms, "device_busy_ms": device_ms,
+                        "dense_loss_ms": dense_ms, "top_kernels": rows})
+        with open(os.path.join(out_dir, "torch_cli_step_profile.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        return 0
 
     torch.backends.cudnn.benchmark = True
     state, _ = timed(state, step, batch, 3)  # cuDNN measures its algorithms here
