@@ -13,8 +13,8 @@ Phases, in order; any failure exits non-zero:
 3. kernels  the dense-pair-loss kernels against their plain PyTorch
             versions, forward value, dq and dk, float32 and bfloat16
             operands, temperatures 1.0 and 0.2, at the CP2 step's shape
-            and six more (every channel width the kernels are built
-            for); two runs of each kernel on the same inputs must be
+            and eight more (every channel width the kernels are built
+            for, and the U-Net steps' S² = 784 and 49); two runs of each kernel on the same inputs must be
             bit-equal, and so must forwards run on two streams at once;
             kernel and plain times at each shape
             (device time of a CUDA graph of back-to-back calls, and the
@@ -43,10 +43,28 @@ Phases, in order; any failure exits non-zero:
             ``metrics.jsonl``, one launch of each dense-loss kernel per step,
             the step and ``queue_ptr`` carried on by the resume; quiet and
             logged step times, end-to-end images/s (loader, copy and
-            augmentation included) and the peak memory.
+            augmentation included) and the peak memory;
+8. variants one step of every other variant at a narrow width on the card
+            against the same step on the CPU, at phase 4's tolerance: MOCO,
+            BYOL, DENSECL, PROPOSED_V2 (symmetric, predictor, coordinate
+            0.5), PROPOSED with PIXEL_REGION_ID 10/1/0 and with each of
+            FIXED/AVERAGE/MEDIAN/HARD, CP2 on both U-Nets; the dense-loss
+            kernel launches once forward and once backward on the kernel
+            route (CP2 on the U-Nets) and never elsewhere;
+9. cli x 8  the CLI per variant at full width (batch 32, 224x224, bfloat16,
+            queue 65536, ``--metrics_level 1 --scalar-freq 3``) on 192
+            synthetic PNGs with SAM region maps (6 steps, 1 epoch): MOCO,
+            BYOL and DENSECL on ``config_moco.py``, PROPOSED_V2
+            (``sym-coord.sh``), PROPOSED (``proposed.sh``; MEDIAN at scale
+            2), CP2 on UNET_TRUNCATED and UNET_ENCODER_ONLY; finite losses,
+            the variant's step and epoch keys, both queue pointers, the
+            dense-loss launches per route, the kernel against its plain
+            version on UNET_TRUNCATED's own features (S² = 784), a 1-step
+            DenseCL ``--resume``; step times, images/s and peak memory.
 
-The last lines are one JSON object on the kernels, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are one JSON object on the kernels (with their launches on
+every path), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -70,9 +88,10 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM tensor cores, TF32, dense
 TF32_PASSES = 3  # float32 operands run as 3xTF32 products
-# C = 8 and 16 run at the kernels' padded width 32; 64 and 256 are built too
+# C = 8 and 16 run at the kernels' padded width 32; 64 and 256 are built too;
+# the last two are CP2's in-step shapes on UNET_TRUNCATED and UNET_ENCODER_ONLY
 SHAPES = [(32, 196, 128), (8, 1024, 128), (2, 4096, 128), (1, 100, 8), (1, 640, 16),
-          (2, 196, 64), (2, 196, 256)]
+          (2, 196, 64), (2, 196, 256), (32, 784, 128), (32, 49, 128)]
 STEP_SHAPE = SHAPES[0]  # (N, S², C) of the CP2 step at 224², batch 32
 TEMPS = (1.0, 0.2)
 F32_TOL = {"loss_rtol": 2e-5, "grad_rtol": 1e-4}  # tests/test_pallas_dense_loss.py
@@ -601,17 +620,21 @@ CLI_BATCH, CLI_STEPS_PER_EPOCH, CLI_EPOCHS = 32, 12, 2
 CLI_WORK = os.path.join("work_dirs", "chip_smoke_cli")
 
 
-def write_png(path, rgb: np.ndarray) -> None:
-    """An 8-bit RGB, non-interlaced PNG, filter 0 on every row, with zlib."""
-    h, w, _ = rgb.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+def write_png(path, img: np.ndarray) -> None:
+    """An 8-bit RGB (H, W, 3) or grey (H, W) non-interlaced PNG, filter 0 on
+    every row, with zlib."""
+    h, w = img.shape[:2]
+    channels = 1 if img.ndim == 2 else 3
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * channels)], axis=1)
 
     def chunk(tag, data):
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if channels == 1 else 2,
+                                             0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
@@ -830,6 +853,347 @@ def check_cli(dl):
         resume_launches=resume_launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: every variant's step, card against CPU, at a narrow width
+# ---------------------------------------------------------------------------
+
+SMALL_MOCO_MODEL = dict(  # config_moco.py's shape at width 8
+    type="EncoderDecoder",
+    backbone=dict(type="ResNet", depth=18, stem_channels=8, base_channels=8,
+                  norm_cfg=dict(type="BN")),
+    decode_head=dict(type="FCNHead", num_convs=0, concat_input=False, in_channels=64,
+                     in_index=3, channels=64, num_classes=2, norm_cfg=dict(type="BN")),
+)
+PROPOSED_SH = dict(mapping_type="PIXEL_REGION_ID", lmbd_pixel_corr_weight=10.0,
+                   lmbd_region_corr_weight=1.0, lmbd_not_corr_weight=0.0)
+SYM_COORD = dict(use_symmetrical_loss=True, use_predictor=True, lmbd_coordinate=0.5)
+# case -> (pretrain type, model config, backbone type, hyperparameters, batch);
+# BYOL's MLP BatchNorms normalise over the batch alone, so it takes 8
+VARIANT_CASES = {
+    "MOCO": ("MOCO", SMALL_MOCO_MODEL, "DEEPLABV3", {}, 2),
+    "BYOL": ("BYOL", SMALL_MOCO_MODEL, "DEEPLABV3", {}, 8),
+    "DENSECL": ("DENSECL", SMALL_MOCO_MODEL, "DEEPLABV3", {}, 2),
+    "PROPOSED_V2": ("PROPOSED_V2", SMALL_MODEL, "DEEPLABV3", SYM_COORD, 2),
+    "PROPOSED_PIXEL_REGION_ID": ("PROPOSED", SMALL_MODEL, "DEEPLABV3", PROPOSED_SH, 2),
+    **{f"PROPOSED_{neg}": ("PROPOSED", SMALL_MODEL, "DEEPLABV3",
+                           dict(negative_type=neg, negative_scale=2.0), 2)
+       for neg in ("FIXED", "AVERAGE", "MEDIAN", "HARD")},
+    "CP2_UNET_TRUNCATED": ("CP2", SMALL_MODEL, "UNET_TRUNCATED", {}, 2),
+    "CP2_UNET_ENCODER_ONLY": ("CP2", SMALL_MODEL, "UNET_ENCODER_ONLY", {}, 2),
+}
+# biases whose every path to the loss passes a train-mode BatchNorm (BYOL's
+# MLPs; tests/test_torch_variant_steps.py): zero-initialised, with a zero
+# gradient in exact arithmetic, they hold rounding noise after a step, so
+# each is held to its layer's weight update instead of its own size
+BN_FED_BIASES = {"BYOL": ("projector.mlp.fc1.bias", "projector.mlp.fc2.bias",
+                          "predictor.fc1.bias")}
+
+
+def variant_batch(batch, hw, device):
+    """The pre-augmented batch with view b's pixel ids shifted by 32 rows and
+    new in its right half, and region ids in 8x8 blocks of 0..8 (0 unknown)."""
+    out = pre_augmented_batch(batch, hw, 0, "cpu")
+    ids_b = torch.roll(out["pixel_ids_a"], 32, dims=1)
+    ids_b[:, :, hw // 2:] += hw * hw
+    r = np.random.RandomState(1)
+    regions = torch.from_numpy(r.randint(0, 9, (batch, hw // 8, hw // 8)).astype(np.int32))
+    regions = regions.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    out.update(pixel_ids_b=ids_b, region_ids_a=regions,
+               region_ids_b=torch.roll(regions, 32, dims=1))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def narrow_unets():
+    """The U-Nets' ResNet-50 at width 8 (they build it at full width)."""
+    import functools
+
+    import cp2_tpu_torch.models.unet as unet
+    from cp2_tpu_torch.models.resnet import ResNet
+
+    unet.ResNet = functools.partial(ResNet, stem_channels=8, base_channels=8)
+    return lambda: setattr(unet, "ResNet", ResNet)
+
+
+def variant_steps_cuda_vs_cpu(dl):
+    """Phase 8: one float32 step of each case from one seed on both
+    devices, at phase 4's tolerance; the dense-loss kernel launches once
+    forward and once backward in the kernel-route cases, never in the
+    others.  Returns the launches by case."""
+    from cp2_tpu_torch.ssl import SSLEncoder, SSLHyperParams, create_pretrain_state
+    from cp2_tpu_torch.ssl.objectives import uses_dense_kernel
+    from cp2_tpu_torch.ssl.train_step import (
+        backbone_output_stride_of, dense_output_stride_of, make_optimizer,
+        make_pretrain_step)
+    from cp2_tpu_torch.types import BackboneType, MappingType, NegativeType, PretrainType
+
+    restore = narrow_unets()
+    launches = {}
+    try:
+        for case, (pt, cfg, bt, kw, batch) in VARIANT_CASES.items():
+            pt, bt = PretrainType[pt], BackboneType[bt]
+            kw = dict(kw)
+            if "mapping_type" in kw:
+                kw["mapping_type"] = MappingType[kw["mapping_type"]]
+            if "negative_type" in kw:
+                kw["negative_type"] = NegativeType[kw["negative_type"]]
+            hp = SSLHyperParams.for_variant(pt, dim=16, queue_len=64, backbone_type=bt, **kw)
+            out = {}
+            for device in ("cpu", "cuda"):
+                model = SSLEncoder(cfg, pretrain_type=pt, backbone_type=bt, dim=16,
+                                   img_hw=(64, 64))
+                state = create_pretrain_state(model, make_optimizer("sgd", 1e-3), hp,
+                                              seed=0, device=device)
+                start = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+                step = make_pretrain_step(hp, dense_output_stride_of(cfg, bt),
+                                          backbone_output_stride_of(cfg, bt))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    dl.reset_launch_counts()
+                state, metrics = step(state, variant_batch(batch, 64, device))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    launches[case] = dict(dl.LAUNCHES)
+                out[device] = (metrics["loss"].item(),
+                               {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+                               state.queue.cpu(), state.queue2.cpu(),
+                               (state.queue_ptr, state.queue2_ptr))
+                del state, model
+            (l_cpu, sd_cpu, q_cpu, q2_cpu, ptr_cpu), (l_gpu, sd_gpu, q_gpu, q2_gpu, ptr_gpu) = (
+                out["cpu"], out["cuda"])
+            err_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+
+            def state_err(key):
+                if key in BN_FED_BIASES.get(case, ()):
+                    weight = key[:-len("bias")] + "weight"
+                    scale = (sd_cpu[weight] - start[weight]).abs().max()
+                    return float((sd_gpu[key] - sd_cpu[key]).abs().max() / scale)
+                return max_rel(sd_gpu[key], sd_cpu[key])
+
+            err_state = max(state_err(k) for k in sd_cpu if sd_cpu[k].abs().max() > 0)
+            err_queue = max(max_rel(q_gpu, q_cpu), max_rel(q2_gpu, q2_cpu))
+            kernel = uses_dense_kernel(hp) and pt in (PretrainType.CP2, PretrainType.PROPOSED)
+            want = 1 if kernel else 0
+            ok = (math.isfinite(l_gpu) and err_loss <= 1e-4 and err_state <= 1e-4
+                  and err_queue <= 1e-4 and ptr_gpu == ptr_cpu
+                  and all(v == want for v in launches[case].values()))
+            log(f"  {case:26s} loss {l_gpu:.6f} vs {l_cpu:.6f} (rel {err_loss:.2e}), state "
+                f"{err_state:.2e}, queues {err_queue:.2e}, ptrs {ptr_gpu}, dense-loss "
+                f"launches {launches[case]} ({'kernel' if kernel else 'plain'} route) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"phase 8: {case} on the card disagrees with the CPU")
+    finally:
+        restore()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the pretrain CLI per variant at full width
+# ---------------------------------------------------------------------------
+
+CLI9_STEPS = 6
+CLI9_WORK = os.path.join("work_dirs", "chip_smoke_variants")
+CONFIG_MOCO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cp2_tpu_torch",
+                           "configs", "config_moco.py")
+# run -> (flags, (queue, queue2) keys enqueued a step, dense-kernel route)
+CLI9_RUNS = {
+    "MOCO": (["--pretrain_type", "MOCO", "--config", CONFIG_MOCO], (1, 0), False),
+    "BYOL": (["--pretrain_type", "BYOL", "--config", CONFIG_MOCO], (0, 0), False),
+    "DENSECL": (["--pretrain_type", "DENSECL", "--config", CONFIG_MOCO, "--lr", "1e-3"],
+                (1, 1), False),
+    "PROPOSED_V2": (["--pretrain_type", "PROPOSED_V2", "--use_symmetrical_loss",
+                     "--use_predictor", "--lmbd_coordinate", "0.5", "--lmbd_cp2_dense_loss",
+                     "0.5", "--dense_logits_temp", "0.2", "--instance_logits_temp", "0.2"],
+                    (1, 1), False),
+    "PROPOSED": (["--pretrain_type", "PROPOSED", "--mapping_type", "PIXEL_REGION_ID",
+                  "--lmbd_pixel_corr_weight", "10", "--lmbd_region_corr_weight", "1",
+                  "--lmbd_not_corr_weight", "0"], (1, 0), False),
+    "PROPOSED_MEDIAN": (["--pretrain_type", "PROPOSED", "--negative_type", "MEDIAN",
+                         "--negative_scale", "2"], (1, 0), False),
+    "CP2_UNET_TRUNCATED": (["--backbone_type", "UNET_TRUNCATED"], (1, 0), True),
+    "CP2_UNET_ENCODER_ONLY": (["--backbone_type", "UNET_ENCODER_ONLY"], (1, 0), True),
+}
+INSTANCE_KEYS = [f"step/instance_{s}_scores" for s in (
+    "average_positive", "average_negative", "lower_negative", "median_negative",
+    "upper_negative")]
+DENSECL_STEP_KEYS = (["train/loss_step", "train/loss_ins_step", "train/loss_dense_step",
+                      "step/cross_image_variance_source_step",
+                      "step/cross_image_variance_target_step", "step/average_iou",
+                      "step/non_zero_iou_ratio", "step/matching_positives_rate",
+                      "step/dense_average_positive_scores",
+                      "step/dense_average_negative_scores"] + INSTANCE_KEYS)
+# the step keys of metrics_level 1 (cp2_tpu/ssl/objectives.py:220-243,320-327,
+# 381-385,565-576)
+VARIANT_STEP_KEYS = {"MOCO": ["train/loss_step", "train/acc_ins_step"] + INSTANCE_KEYS,
+                     "BYOL": ["train/loss_step"], "DENSECL": DENSECL_STEP_KEYS,
+                     "PROPOSED_V2": DENSECL_STEP_KEYS, "PROPOSED": CP2_STEP_KEYS,
+                     "CP2": CP2_STEP_KEYS}
+
+
+def write_region_maps(image_paths, hw=(256, 256), seed=0):
+    """Synthetic SAM region maps at ``<root>/SAM_Masks/<stem>.png`` for images
+    under ``<root>/<dir>/``: ids 0..8 in 32x32 blocks, 0 unknown, as 8-bit
+    grey PNGs."""
+    from cp2_tpu_torch.data.datasets import region_mask_path
+
+    r = np.random.RandomState(seed)
+    for path in image_paths:
+        ids = r.randint(0, 9, (hw[0] // 32, hw[1] // 32)).repeat(32, 0).repeat(32, 1)
+        mask = region_mask_path(path)
+        os.makedirs(os.path.dirname(mask), exist_ok=True)
+        write_png(mask, ids.astype(np.uint8))
+
+
+def augmentation_layout():
+    """Strides of the augmentation's img_a, the layout each CLI step's model
+    input has (PERF.md §5: it sets the step's speed)."""
+    from cp2_tpu_torch.augment import AugmentConfig, pretrain_batch_augment
+
+    raw = {k: torch.zeros((2, 256, 256, 3), dtype=torch.uint8, device="cuda")
+           for k in ("fg", "bg0", "bg1")}
+    img = pretrain_batch_augment(torch.Generator(device="cuda").manual_seed(0), raw,
+                                 AugmentConfig(out_hw=(224, 224)))["img_a"]
+    order = sorted(range(4), key=lambda d: -img.stride(d))
+    return "".join("NHWC"[d] for d in order)
+
+
+def check_unet_kernel_on_step_features(dl, state):
+    """Phase 5's check at S² = 784: the kernel against the plain version on
+    the UNET_TRUNCATED state's own dense features."""
+    batch = pre_augmented_batch(32, 224, 0, "cuda")
+    q, k, a, b = dense_features(state, batch, 8)
+    if tuple(q.shape) != (32, 784, 128):
+        raise SystemExit(f"UNET_TRUNCATED dense features {tuple(q.shape)}, want (32, 784, 128)")
+    qg = q.detach().clone().requires_grad_()
+    loss = dl.dense_pair_loss(qg, k, a, b, 1.0)
+    loss.backward()
+    qr = q.detach().clone().requires_grad_()
+    ref = dl.dense_pair_loss_reference(qr, k, a, b, 1.0)
+    ref.backward()
+    err_loss = abs(loss.item() - ref.item()) / abs(ref.item())
+    err_dq = max_rel(qg.grad, qr.grad)
+    log(f"    UNET_TRUNCATED features (32, 784, 128): kernel loss {loss.item():.6f} plain "
+        f"{ref.item():.6f} (rel {err_loss:.2e}), dq max rel {err_dq:.2e}")
+    if err_loss > F32_TOL["loss_rtol"] or err_dq > F32_TOL["grad_rtol"]:
+        raise SystemExit("kernel disagrees with the plain version on the U-Net's features")
+    return dict(loss_rel=err_loss, dq_rel=err_dq,
+                max_abs_fwd=abs(loss.item() - ref.item()),
+                max_abs_bwd=float((qg.grad - qr.grad).abs().max()))
+
+
+def check_cli_variants(dl):
+    """Phase 9; returns the launches by run and the runs' numbers."""
+    from cp2_tpu_torch.ssl.train_step import epoch_scalar_names
+    from cp2_tpu_torch.train import pretrain
+    from cp2_tpu_torch.types import PretrainType
+
+    shutil.rmtree(CLI9_WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    images = os.path.join(CLI9_WORK, "data", "images")
+    paths, _ = synthetic_frames(images, CLI_BATCH * CLI9_STEPS, seed=1)
+    write_region_maps(paths)
+    log(f"  wrote {len(paths)} PNGs of 256x256 and their SAM region maps in "
+        f"{time.perf_counter() - t0:.1f} s")
+    layout = augmentation_layout()
+    log(f"  model input layout (the augmentation's img_a, by stride): {layout}")
+    logs = os.path.join(CLI9_WORK, "logs")
+    common = ["--log_dir", logs, "--data_dirs", images, "-b", str(CLI_BATCH),
+              "--img_height", "224", "--img_width", "224", "--metrics_level", "1",
+              "--scalar-freq", "3", "--print-freq", "3", "--visual-freq", "0"]
+    clock = StepClock(pretrain.make_pretrain_step)
+    pretrain.make_pretrain_step = clock
+    launches, numbers = {}, {}
+    try:
+        for run, (flags, enqueues, kernel) in CLI9_RUNS.items():
+            clock.rows = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            dl.reset_launch_counts()  # this path's run starts here
+            state = run_cli(pretrain, ["--run_id", run, "--epochs", "1"] + common + flags,
+                            clock)
+            launches[run] = dict(dl.LAUNCHES)  # read just after the run
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            rows = list(clock.rows)
+            pt_name = (flags[flags.index("--pretrain_type") + 1]
+                       if "--pretrain_type" in flags else "CP2")
+            k = state.queue.shape[0]
+            want_ptrs = tuple(e * CLI9_STEPS * CLI_BATCH % k for e in enqueues)
+            losses = [row[-1] for row in rows]
+            problems = []
+            if state.step != CLI9_STEPS or len(rows) != CLI9_STEPS:
+                problems.append(f"{state.step} steps")
+            if k != 65536:
+                problems.append(f"queue of {k}")
+            if (state.queue_ptr, state.queue2_ptr) != want_ptrs:
+                problems.append(f"queue ptrs {(state.queue_ptr, state.queue2_ptr)}, want {want_ptrs}")
+            if not all(math.isfinite(x) for x in losses):
+                problems.append(f"losses {losses}")
+            want = CLI9_STEPS if kernel else 0
+            if any(v != want for v in launches[run].values()):
+                problems.append(f"dense-loss launches {launches[run]}, want {want} each")
+            with open(os.path.join(logs, run, "metrics.jsonl")) as f:
+                metric_rows = [json.loads(line) for line in f]
+            step_rows = [r for r in metric_rows if "train/loss_step" in r]
+            epoch_rows = [r for r in metric_rows if "train/loss" in r]
+            missing = sorted({key for r in step_rows for key in VARIANT_STEP_KEYS[pt_name]
+                              if not math.isfinite(r.get(key, math.nan))})
+            epoch_missing = [n for n in epoch_scalar_names(PretrainType[pt_name])
+                             if not epoch_rows or not math.isfinite(epoch_rows[-1].get(n, math.nan))]
+            if len(step_rows) != 2 or missing or epoch_missing:
+                problems.append(f"metrics.jsonl: {len(step_rows)} step rows, missing or "
+                                f"non-finite {missing}, epoch keys {epoch_missing}")
+            unet_check = None
+            if run == "CP2_UNET_TRUNCATED" and not problems:
+                unet_check = check_unet_kernel_on_step_features(dl, state)
+            quiet = [r[1] * 1e3 for r in rows if r[0] == 0]
+            logged = [r[1] * 1e3 for i, r in enumerate(rows) if r[0] > 0 and i > 0]
+            ips = CLI_BATCH * (len(rows) - 1) / sum(r[2] for r in rows[1:])
+            numbers[run] = dict(
+                pretrain_type=pt_name, flags=flags, step_call_ms=[r[1] * 1e3 for r in rows],
+                step_gap_ms=[r[2] * 1e3 for r in rows], step_levels=[r[0] for r in rows],
+                losses=losses, quiet_ms_median=statistics.median(quiet),
+                logged_ms=logged, images_per_s_after_first_step=ips, peak_bytes=peak,
+                run_wall_s=wall, queue_ptrs=[state.queue_ptr, state.queue2_ptr],
+                launches=launches[run], input_layout=layout, unet_kernel_check=unet_check)
+            log(f"  {run:22s} losses {['%.4f' % x for x in losses]}; quiet step median "
+                f"{numbers[run]['quiet_ms_median']:.1f} ms, logged {['%.1f' % x for x in logged]} ms,"
+                f" first {rows[0][1] * 1e3:.1f} ms; {ips:.1f} images/s after the first step; "
+                f"peak {peak / 2**30:.2f} GiB; queue ptrs {(state.queue_ptr, state.queue2_ptr)}; "
+                f"dense-loss launches {launches[run]}; run {wall:.1f} s "
+                f"{'ok' if not problems else 'FAIL: ' + '; '.join(problems)}")
+            if problems:
+                raise SystemExit(f"phase 9: {run}: {'; '.join(problems)}")
+            del state
+            torch.cuda.empty_cache()
+
+        # a 1-step --resume of the DenseCL run: step, both pointers, parity
+        clock.rows = []
+        dl.reset_launch_counts()
+        run = "DENSECL"
+        resumed = run_cli(pretrain, ["--run_id", run, "--epochs", "2", "--max_steps",
+                                     str(CLI9_STEPS), "--resume", os.path.join(logs, run)]
+                          + common + CLI9_RUNS[run][0], clock)
+        want_ptrs = tuple((CLI9_STEPS + 1) * CLI_BATCH % 65536 for _ in range(2))
+        ok = (resumed.step == CLI9_STEPS + 1
+              and (resumed.queue_ptr, resumed.queue2_ptr) == want_ptrs
+              and all(math.isfinite(r[-1]) for r in clock.rows) and len(clock.rows) == 1)
+        log(f"  DENSECL --resume from step {CLI9_STEPS}: step {resumed.step} (parity "
+            f"{CLI9_STEPS % 2} at the resumed step), queue ptrs "
+            f"{(resumed.queue_ptr, resumed.queue2_ptr)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("phase 9: the DenseCL resume did not carry its state")
+        numbers["DENSECL"]["resume"] = dict(step=resumed.step,
+                                            queue_ptrs=[resumed.queue_ptr, resumed.queue2_ptr])
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        pretrain.make_pretrain_step = clock.make
+    shutil.rmtree(CLI9_WORK, ignore_errors=True)
+    return launches, numbers
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -880,12 +1244,29 @@ def main() -> int:
     log("augment:")
     aug_ms = check_augment()
 
-    # phase 7: the pretrain CLI, this slice's main path
+    # phase 7: the pretrain CLI (CP2)
     log("pretrain CLI:")
     launches, cli = check_cli(dl)
+
+    # phase 8: every variant's step, card against CPU
+    log("variant steps, card vs CPU:")
+    variant_launches = variant_steps_cuda_vs_cpu(dl)
+
+    # phase 9: the CLI per variant at full width, this slice's main paths
+    log("pretrain CLI per variant:")
+    cli9_launches, cli9 = check_cli_variants(dl)
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
-                   "augment": aug_ms, "cli": cli}, f, indent=1)
+                   "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
+                   "cli_variants": cli9}, f, indent=1)
+    log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")
+
+    def by_path(name):
+        """Launches of one kernel on every path that runs the step."""
+        paths = {"phase5_step": step_launches[name], "phase7_cli_CP2": launches[name]}
+        paths.update({f"phase8_{case}": n[name] for case, n in variant_launches.items()})
+        paths.update({f"phase9_cli_{run}": n[name] for run, n in cli9_launches.items()})
+        return paths
 
     kernels = [
         {"name": "dense_pair_loss_fwd", "route": "cuda",
@@ -898,6 +1279,7 @@ def main() -> int:
          "fp32_fma_bound_ms": flagship["fwd_fp32_fma_bound_ms"],
          "eager_ms": flagship["fwd_eager_ms"],
          "launches_step_phase": step_launches["dense_pair_loss_fwd"],
+         "launches_by_path": by_path("dense_pair_loss_fwd"),
          "check": "pass", "shape": list(STEP_SHAPE)},
         {"name": "dense_pair_loss_bwd", "route": "cuda",
          "source": "cp2_tpu_torch/csrc/dense_loss.cu",
@@ -909,6 +1291,7 @@ def main() -> int:
          "fp32_fma_bound_ms": flagship["bwd_fp32_fma_bound_ms"],
          "eager_ms": flagship["bwd_eager_ms"],
          "launches_step_phase": step_launches["dense_pair_loss_bwd"],
+         "launches_by_path": by_path("dense_pair_loss_bwd"),
          "check": "pass", "shape": list(STEP_SHAPE)},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

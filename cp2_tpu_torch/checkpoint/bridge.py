@@ -117,15 +117,21 @@ def load_pretrain_state_from_flax(state, tree: Dict[str, Any]) -> None:
     """Carry a flax ``PretrainState`` (as numpy) into the port's state.
 
     ``tree`` holds ``params``, ``batch_stats``, ``ema_params``,
-    ``ema_batch_stats``, ``queue``, ``queue_ptr`` and ``step`` — the
-    fields of ``cp2_tpu.ssl.state.PretrainState`` that the CP2 step uses.
-    The optimizer's momentum is not carried: both sides start it at zero.
+    ``ema_batch_stats``, ``queue``, ``queue_ptr``, ``queue2``,
+    ``queue2_ptr`` and ``step`` — the fields of
+    ``cp2_tpu.ssl.state.PretrainState`` but the optimizer state: its
+    momentum is not carried, both sides start it at zero.  Every variant's
+    tree carries by the same rename (MoCo/BYOL's ``projector.mlp`` and
+    ``predictor``, their BatchNorm ``batch_stats``, DenseCL's ``neck``,
+    the U-Net's ``decoder_{i}``).
     """
     load_flax_into(state.model, tree["params"], tree["batch_stats"])
     load_flax_into(state.ema_model, tree["ema_params"], tree["ema_batch_stats"])
     with torch.no_grad():
         state.queue.copy_(torch.from_numpy(np.asarray(tree["queue"])))
+        state.queue2.copy_(torch.from_numpy(np.asarray(tree["queue2"])))
     state.queue_ptr = int(tree["queue_ptr"])
+    state.queue2_ptr = int(tree["queue2_ptr"])
     state.step = int(tree["step"])
 
 
@@ -140,5 +146,7 @@ def pretrain_state_to_flax(state) -> Dict[str, Any]:
         "ema_batch_stats": ema_batch_stats,
         "queue": state.queue.detach().cpu().numpy().copy(),
         "queue_ptr": np.int32(state.queue_ptr),
+        "queue2": state.queue2.detach().cpu().numpy().copy(),
+        "queue2_ptr": np.int32(state.queue2_ptr),
         "step": np.int32(state.step),
     }

@@ -4,8 +4,8 @@ Port of ``cp2_tpu/checkpoint/io.py`` (orbax there), same layout and
 semantics: ``<dir>/<step>/`` holds the state file ``state.pt`` and a
 ``meta.json`` carrying the tags the reference embeds (``pretrain_type``,
 ``backbone_type``, ``epoch``), and ``<dir>/latest`` names the newest step.
-The state is the query model, the EMA model, the optimizer, the queue,
-``queue_ptr`` and the step.
+The state is the query model, the EMA model, the optimizer, both queues
+with their pointers, and the step.
 
 The state file is written to a temporary name and renamed, so an
 interrupted save never appears at the final path.  With ``async_save``
@@ -49,6 +49,8 @@ def state_payload(state) -> Dict[str, Any]:
         "optimizer": state.optimizer.state_dict(),
         "queue": state.queue,
         "queue_ptr": int(state.queue_ptr),
+        "queue2": state.queue2,
+        "queue2_ptr": int(state.queue2_ptr),
         "step": int(state.step),
     })
 
@@ -181,7 +183,9 @@ def restore_checkpoint(path: str, state) -> Tuple[Any, Dict[str, Any]]:
     state.optimizer.load_state_dict(payload["optimizer"])
     with torch.no_grad():
         state.queue.copy_(payload["queue"])
+        state.queue2.copy_(payload["queue2"])
     state.queue_ptr = int(payload["queue_ptr"])
+    state.queue2_ptr = int(payload["queue2_ptr"])
     state.step = int(payload["step"])
     meta: Dict[str, Any] = {}
     meta_path = os.path.join(path, META_NAME)

@@ -1,4 +1,4 @@
-"""Model zoo: registries, backbones, heads, segmentors (ported so far)."""
+"""Model zoo: registries, backbones, necks, heads, segmentors (ported so far)."""
 
 from cp2_tpu_torch.models.registry import (
     BACKBONES,
@@ -13,7 +13,9 @@ from cp2_tpu_torch.models.registry import (
     build_segmentor,
 )
 from cp2_tpu_torch.models.resnet import ResNet
-from cp2_tpu_torch.models.heads import ASPPHead
+from cp2_tpu_torch.models.heads import ASPPHead, FCNHead
+from cp2_tpu_torch.models.necks import DenseCLNeck, GlobalProjector
+from cp2_tpu_torch.models.unet import UNetEncoderOnly, UNetTruncated
 from cp2_tpu_torch.models.encoder_decoder import EncoderDecoder
 
 __all__ = [
@@ -29,5 +31,10 @@ __all__ = [
     "build_segmentor",
     "ResNet",
     "ASPPHead",
+    "FCNHead",
+    "DenseCLNeck",
+    "GlobalProjector",
+    "UNetEncoderOnly",
+    "UNetTruncated",
     "EncoderDecoder",
 ]

@@ -1,13 +1,19 @@
-"""Decode heads: ASPP (DeepLabV3) with the dense-contrast branch.
+"""Decode heads: ASPP (DeepLabV3) and FCN, with the dense-contrast branch.
 
-Port of ``cp2_tpu/models/heads.py::ASPPHead`` (reference
-``mmseg_/models/decode_heads/aspp_head.py:53-117``): global image-pool
-branch broadcast back to the grid, parallel atrous convs ``aspp_{i}``,
-``bottleneck``, then either the ``conv_seg`` classifier or — with
-``contrast=True`` — the ``contrast_conv`` 1x1-conv MLP to a
-``contrast_dim`` dense embedding.  The contrast head returns before the
-dropout, so the pretrain step draws no random numbers.  ``FCNHead`` is
-not ported yet.
+Port of ``cp2_tpu/models/heads.py``:
+
+* ``ASPPHead`` (reference ``mmseg_/models/decode_heads/aspp_head.py:53-117``):
+  global image-pool branch broadcast back to the grid, parallel atrous
+  convs ``aspp_{i}``, ``bottleneck``, then either the ``conv_seg``
+  classifier or — with ``contrast=True`` — the ``contrast_conv`` 1x1-conv
+  MLP to a ``contrast_dim`` dense embedding.
+* ``FCNHead`` (reference ``fcn_head.py:10-91``): a stack of ``convs_{i}``
+  with the optional ``conv_cat`` of input and output; ``num_convs=0`` is
+  the identity the MoCo config uses (``configs/config_moco.py``), then
+  ``conv_seg``.
+
+The contrast heads return before the dropout, so the pretrain step draws
+no random numbers.
 """
 
 from __future__ import annotations
@@ -65,6 +71,50 @@ class ASPPHead(nn.Module):
         for i in range(self.num_branches):
             branches.append(getattr(self, f"aspp_{i}")(x))
         y = self.bottleneck(torch.cat(branches, dim=1))
+        if self.contrast:
+            return self.contrast_conv(y)
+        return conv2d(self.conv_seg, self.dropout(y), self.dtype)
+
+
+@HEADS.register
+class FCNHead(nn.Module):
+    def __init__(self, in_channels: int = 2048, channels: int = 2048,
+                 num_classes: Optional[int] = None, num_convs: int = 2,
+                 kernel_size: int = 3, concat_input: bool = True, dilation: int = 1,
+                 in_index: int = -1, dropout_ratio: float = 0.1,
+                 contrast: bool = False, contrast_dim: int = 128,
+                 norm_cfg: Optional[dict] = None, align_corners: bool = False,
+                 loss_decode: Optional[dict] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        del align_corners, loss_decode  # used by the finetune path, not here
+        if num_convs == 0 and in_channels != channels:
+            raise ValueError("num_convs=0 requires in_channels == channels")
+        self.in_index = in_index
+        self.num_convs = num_convs
+        self.concat_input = concat_input and num_convs > 0
+        self.contrast = contrast
+        self.dtype = dtype
+        kw = dict(norm_cfg=norm_cfg, dtype=dtype)
+        for i in range(num_convs):
+            setattr(self, f"convs_{i}", ConvModule(
+                in_channels if i == 0 else channels, channels, kernel_size,
+                dilation=dilation, **kw))
+        if self.concat_input:
+            self.conv_cat = ConvModule(in_channels + channels, channels, kernel_size, **kw)
+        if contrast:
+            self.contrast_conv = ConvMLP(channels, channels, contrast_dim, dtype=dtype)
+        else:
+            self.dropout = nn.Dropout(dropout_ratio if num_convs > 0 else 0.0)
+            self.conv_seg = nn.Conv2d(channels, num_classes, 1)
+
+    def forward(self, inputs) -> torch.Tensor:
+        x = _select_input(inputs, self.in_index).to(self.dtype)
+        y = x
+        for i in range(self.num_convs):
+            y = getattr(self, f"convs_{i}")(y)
+        if self.concat_input:
+            y = self.conv_cat(torch.cat([x, y], dim=1))
         if self.contrast:
             return self.contrast_conv(y)
         return conv2d(self.conv_seg, self.dropout(y), self.dtype)

@@ -132,6 +132,36 @@ class ConvModule(nn.Module):
         return x.to(self.dtype)
 
 
+def linear(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Run ``fc`` in ``dtype`` with its float32 weights cast per call."""
+    bias = None if fc.bias is None else fc.bias.to(dtype)
+    return F.linear(x.to(dtype), fc.weight.to(dtype), bias)
+
+
+class MLP(nn.Module):
+    """fc → (optional BN) → relu → fc projector/predictor head on (N, C).
+
+    Port of ``layers.py:282-307`` (the MoCo/BYOL heads, reference
+    builder.py:404-429; BYOL inserts the BatchNorm).  The BatchNorm is the
+    flax-semantics one above on (N, C) input: its batch holds N values per
+    channel, and the running variance's biased correction uses that N.
+    """
+
+    def __init__(self, in_features: int, hidden: int, out: int, use_bn: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden)
+        self.bn = BatchNorm(hidden) if use_bn else None
+        self.fc2 = nn.Linear(hidden, out)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = linear(self.fc1, x, self.dtype)
+        if self.bn is not None:
+            x = self.bn(x)
+        return linear(self.fc2, F.relu(x), self.dtype)
+
+
 class ConvMLP(nn.Module):
     """1x1-conv → relu → 1x1-conv dense projection head (``contrast_conv``)."""
 
@@ -151,13 +181,14 @@ class ConvMLP(nn.Module):
 def init_flax_like_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise in place as flax's defaults would, from ``generator``.
 
-    Conv kernels: ``lecun_normal`` (truncated normal, fan-in scaling);
-    conv biases zero; norm scales one (zero where ``zero_init``), biases
-    zero; running stats zero mean, unit variance.  The values differ from
-    a flax init with the same seed — only the distributions match.
+    Conv and dense kernels: ``lecun_normal`` (truncated normal, fan-in
+    scaling); their biases zero; norm scales one (zero where
+    ``zero_init``), biases zero; running stats zero mean, unit variance.
+    The values differ from a flax init with the same seed — only the
+    distributions match.
     """
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             # flax's truncated normal is cut at ±2σ and rescaled to unit
             # variance by this constant

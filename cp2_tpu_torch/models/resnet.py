@@ -158,6 +158,8 @@ class ResNet(nn.Module):
 
         channels = stem_channels
         self.stages: list[list[str]] = []
+        self.strides = tuple(strides[:len(stage_blocks)])
+        self.stage_channels: list[int] = []  # output channels of each stage
         for i, num_blocks in enumerate(stage_blocks):
             stride, dilation = strides[i], dilations[i]
             planes = base_channels * 2**i
@@ -188,6 +190,21 @@ class ResNet(nn.Module):
                 names.append(name)
                 channels = planes * block_cls.expansion
             self.stages.append(names)
+            self.stage_channels.append(channels)
+
+    def feature_hw(self, img_hw: Tuple[int, int]) -> Tuple[int, int]:
+        """Spatial size of the last stage's output for an ``img_hw`` input.
+
+        The stem conv and the max pool each halve a side rounding up, and so
+        does every stride-s 3x3 conv ('same' padding) and 1x1 projection.
+        """
+        out = []
+        for side in img_hw:
+            side = -(-side // 4)
+            for s in self.strides:
+                side = -(-side // s)
+            out.append(side)
+        return tuple(out)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = x.to(self.dtype)

@@ -1,8 +1,7 @@
-"""Loss functions: InfoNCE, MoCo logits, CP2 dense loss, segmentation CE,
-negative reshaping and row quantiles.
+"""Loss functions: InfoNCE, MoCo logits, CP2 dense loss, BYOL, segmentation
+CE, negative reshaping and row quantiles.
 
-Port of ``cp2_tpu/ops/losses.py`` (BYOL's loss waits for its objective).
-The TPU-driven rewrites there (sort-free top-k, gather-free selects) become
+Port of ``cp2_tpu/ops/losses.py``.  The TPU-driven rewrites there (sort-free top-k, gather-free selects) become
 the plain torch calls they stand in for: ``torch.sort``, ``torch.topk``,
 ``gather``.
 """
@@ -46,6 +45,11 @@ def cp2_dense_loss(logits_dense: torch.Tensor, labels_dense: torch.Tensor,
     num = ((-log_sm).reshape(n, -1) * labels).sum(dim=1)
     den = labels.sum(dim=1).clamp_min(1e-12)
     return (num / den).mean()
+
+
+def byol_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """2 - 2·cosine similarity, per sample (reference builder.py:1080-1083)."""
+    return 2.0 - 2.0 * torch.einsum("nc,nc->n", l2_normalize(x), l2_normalize(y))
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

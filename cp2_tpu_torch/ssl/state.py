@@ -1,4 +1,4 @@
-"""Pretrain train-state: query encoder, EMA key encoder, optimizer, queue.
+"""Pretrain train-state: query encoder, EMA key encoder, optimizer, queues.
 
 Port of ``cp2_tpu/ssl/state.py``.  The flax state holds one module
 definition and two parameter trees; here it holds two modules — the query
@@ -8,7 +8,9 @@ buffers, and the step updates them in place.
 EMA semantics: the momentum update touches *parameters only* — BN running
 statistics are NOT averaged (the reference iterates ``.parameters()``,
 builder.py:557-567); the key encoder's stats evolve through its own
-forwards.  The DenseCL-family second queue is not ported yet.
+forwards.  Both queues always exist, as in the JAX state: ``queue`` holds
+instance-level negatives (CP2, PROPOSED, MoCo, DenseCL's global loss) and
+``queue2`` DenseCL's pooled local ones.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ class PretrainState:
     optimizer: torch.optim.Optimizer
     queue: torch.Tensor  # (K, dim) instance-level negatives
     queue_ptr: int
+    queue2: torch.Tensor  # (K, dim) dense/pooled negatives (DenseCL family)
+    queue2_ptr: int
 
     @torch.no_grad()
     def ema_update(self, momentum: float) -> None:
@@ -50,11 +54,12 @@ def create_pretrain_state(
     device: str | torch.device = "cuda",
 ) -> PretrainState:
     """Random weights from ``seed``, key encoder = exact copy of the query
-    encoder (builder.py:464-469), a random unit queue, and the optimizer
+    encoder (builder.py:464-469), two random unit queues, and the optimizer
     ``tx(params)`` (see ``train_step.make_optimizer``)."""
     gen = torch.Generator().manual_seed(seed)
     model.init_weights(gen)
     queue = init_queue(gen, hp.queue_len, hp.dim)
+    queue2 = init_queue(gen, hp.queue_len, hp.dim)
     model.to(device).train()
     ema_model = copy.deepcopy(model)
     ema_model.requires_grad_(False)
@@ -65,4 +70,6 @@ def create_pretrain_state(
         optimizer=tx(model.parameters()),
         queue=queue.to(device),
         queue_ptr=0,
+        queue2=queue2.to(device),
+        queue2_ptr=0,
     )

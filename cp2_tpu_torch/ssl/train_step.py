@@ -1,11 +1,11 @@
 """The pretrain step: EMA, key forward, query forward/backward, SGD, enqueue.
 
-Port of the CP2 branch of ``cp2_tpu/ssl/train_step.py``.  The JAX step is
-one pure jitted ``state -> state`` transition; here the step runs eagerly
-and updates the state's modules, optimizer and queue in place, in the
-same order: EMA update BEFORE the key forward (builder.py:726,1272), key
-forward in train mode without grad, query forward and backward, optimizer
-update, enqueue.  The MoCo/BYOL/DenseCL branches are not ported yet.
+Port of ``cp2_tpu/ssl/train_step.py``, every branch: CP2/PROPOSED,
+MoCo-v2, BYOL, DenseCL/PROPOSED_V2.  The JAX step is one pure jitted
+``state -> state`` transition; here the step runs eagerly and updates the
+state's modules, optimizer and queues in place, in the same order: EMA
+update BEFORE the key forward (builder.py:726,1272), key forward in train
+mode without grad, query forward and backward, optimizer update, enqueue.
 
 Per-step randomness: the JAX step folds the step counter into one base
 key (``jax.random.fold_in(rng, state.step)``); here each step seeds a
@@ -47,26 +47,51 @@ def dense_output_stride_of(model_cfg: dict, backbone_type: BackboneType,
                                      unet_truncated_dec_blocks)
 
 
-# the CP2 epoch-aggregate family, (epoch name, step source), in the order
-# of the JAX package's epoch_scalar_names(PretrainType.CP2)
-# (builder.py:1608-1664)
-CP2_EPOCH_SCALARS = (
-    ("train/loss", "train/loss_step"),
-    ("train/acc_ins", "train/acc_ins_step"),
-    ("train/loss_ins", "train/loss_ins_step"),
-    ("train/loss_dense", "train/loss_dense_step"),
-    ("train/cross_image_variance_source", "train/cross_image_variance_source_step"),
-    ("train/cross_image_variance_target", "train/cross_image_variance_target_step"),
-    ("train/acc_seg", "train/acc_seg_step"),
-)
+# Per-variant epoch-aggregate families (reference on_train_epoch_end,
+# builder.py:1608-1664): epoch name -> candidate step-metric sources
+# (``cp2_tpu/ssl/train_step.py:51-84``).
+EPOCH_SOURCES = {
+    "train/loss": ("train/loss_step",),
+    "train/acc_ins": ("train/acc_ins_step",),
+    "train/loss_ins": ("train/loss_ins_step",),
+    "train/loss_dense": ("train/loss_dense_step",),
+    "train/acc_seg": ("train/acc_seg_step",),
+    "train/cross_image_variance_source": (
+        "train/cross_image_variance_source_step",
+        "step/cross_image_variance_source_step",
+    ),
+    "train/cross_image_variance_target": (
+        "train/cross_image_variance_target_step",
+        "step/cross_image_variance_target_step",
+    ),
+}
 
 
 def epoch_scalar_names(pt: PretrainType) -> Tuple[str, ...]:
     """The scalars the reference averages over every step into its epoch
-    aggregates (builder.py:1608-1664); CP2 only in the port so far."""
-    if pt != PretrainType.CP2:
-        raise NotImplementedError(f"pretrain_type={pt} is not ported yet")
-    return tuple(name for name, _ in CP2_EPOCH_SCALARS)
+    aggregates, per variant (builder.py:1608-1664)."""
+    names = ["train/loss"]
+    if pt in (PretrainType.MOCO, PretrainType.CP2, PretrainType.PROPOSED):
+        names.append("train/acc_ins")
+    if pt in (PretrainType.DENSECL, PretrainType.PROPOSED_V2, PretrainType.CP2):
+        names += ["train/loss_ins", "train/loss_dense"]
+    if pt in (PretrainType.PROPOSED_V2, PretrainType.CP2):
+        names += ["train/cross_image_variance_source",
+                  "train/cross_image_variance_target"]
+    if pt == PretrainType.CP2:
+        names.append("train/acc_seg")
+    return tuple(names)
+
+
+def epoch_vector(pt: PretrainType, metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The variant's epoch family packed in ``epoch_scalar_names`` order."""
+    vec = []
+    for name in epoch_scalar_names(pt):
+        src = next((s for s in EPOCH_SOURCES[name] if s in metrics), None)
+        if src is None:
+            raise KeyError(f"epoch scalar {name} has no source in step metrics")
+        vec.append(metrics[src].float())
+    return torch.stack(vec)
 
 
 _SEED_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: (seed, step) -> one seed
@@ -83,47 +108,87 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def make_pretrain_step(
     hp: SSLHyperParams,
     output_stride: int,
+    backbone_output_stride: int | None = None,
     *,
     metrics_level: int = 0,
     epoch_scalars: bool = False,
     augment_fn: Callable | None = None,
 ) -> Callable[[PretrainState, Dict[str, torch.Tensor]],
               Tuple[PretrainState, Dict[str, torch.Tensor]]]:
-    """Build ``step_fn(state, batch, seed=0) -> (state, metrics)`` for CP2.
+    """Build ``step_fn(state, batch, seed=0) -> (state, metrics)`` for the
+    variant ``hp.pretrain_type``.
 
     Differs from the JAX signature in what PyTorch makes unnecessary: the
     model and optimizer live in the state, and the base PRNG key is an
-    integer ``seed``.  ``augment_fn(generator, raw) -> batch`` turns raw
-    frames into the CP2 batch on the step's device, drawing from
-    ``step_generator(seed, state.step, device)``; without it the batch comes
-    pre-augmented, NHWC.  ``metrics_level`` 1 adds the reference's scalar
-    families, 2 the ``_visual/*`` arrays.  ``epoch_scalars`` adds
-    ``metrics["_epoch_vec"]`` in ``CP2_EPOCH_SCALARS`` order.
+    integer ``seed``.  ``backbone_output_stride`` subsamples the pixel ids
+    of DenseCL/PROPOSED_V2 (required there).  ``augment_fn(generator, raw)
+    -> batch`` turns raw frames into the batch on the step's device,
+    drawing from ``step_generator(seed, state.step, device)``; without it
+    the batch comes pre-augmented, NHWC.  ``metrics_level`` 1 adds the
+    reference's scalar families, 2 the ``_visual/*`` arrays.
+    ``epoch_scalars`` adds ``metrics["_epoch_vec"]`` in
+    ``epoch_scalar_names`` order.
+
+    Parameters the loss does not reach (MoCo's predictor, the segmentor's
+    unused ``conv_seg``, DenseCL's predictors without ``use_predictor``)
+    get a zero gradient: ``jax.value_and_grad`` gives them zeros, and the
+    JAX optimizer's weight decay and momentum still move them, where
+    ``torch.optim`` would skip a parameter without a gradient.
     """
-    if hp.pretrain_type != PretrainType.CP2:
-        raise NotImplementedError(f"pretrain_type={hp.pretrain_type} is not ported yet")
+    pt = hp.pretrain_type
+    dense_family = pt in (PretrainType.DENSECL, PretrainType.PROPOSED_V2)
+    if pt not in (PretrainType.CP2, PretrainType.PROPOSED, PretrainType.MOCO,
+                  PretrainType.BYOL) and not dense_family:
+        raise NotImplementedError(f"pretrain_type={pt}")
+    if dense_family and backbone_output_stride is None:
+        raise ValueError(f"{pt.name} needs backbone_output_stride")
+    kw = dict(metrics_level=metrics_level, epoch_scalars=epoch_scalars)
 
     def step_fn(state: PretrainState, batch, seed: int = 0):
         if augment_fn is not None:
             device = state.queue.device
             batch = augment_fn(step_generator(seed, state.step, device), batch)
+        # momentum update BEFORE the key forward (builder.py:726,1272)
         state.ema_update(hp.momentum)
-        key_out = obj.cp2_key_forward(state.ema_model, batch)
-        loss, aux = obj.cp2_objective(
-            state.model, key_out, batch, state.queue, hp, output_stride,
-            metrics_level=metrics_level, epoch_scalars=epoch_scalars,
-        )
+        if pt in (PretrainType.CP2, PretrainType.PROPOSED):
+            key_out = obj.cp2_key_forward(state.ema_model, batch)
+            loss, aux = obj.cp2_objective(state.model, key_out, batch, state.queue, hp,
+                                          output_stride, **kw)
+        elif pt == PretrainType.MOCO:
+            key_out = obj.moco_key_forward(state.ema_model, batch)
+            loss, aux = obj.moco_objective(state.model, key_out, batch, state.queue, hp,
+                                           **kw)
+        elif pt == PretrainType.BYOL:
+            key_out = obj.byol_key_forward(state.ema_model, batch)
+            loss, aux = obj.byol_objective(state.model, key_out, batch, hp, **kw)
+        else:
+            # the reference's momentum update lives inside get_key_features
+            # (builder.py:723-726): the symmetric loss applies the EMA twice
+            # a step, and direction 2's keys (img_a) come from the
+            # twice-updated encoder, its BatchNorm chained from direction 1
+            key_out = [obj.densecl_key_forward(state.ema_model, batch["img_b"])]
+            if hp.use_symmetrical_loss:
+                state.ema_update(hp.momentum)
+                key_out.append(obj.densecl_key_forward(state.ema_model, batch["img_a"]))
+            loss, aux = obj.densecl_objective(
+                state.model, key_out, batch, (state.queue, state.queue2), hp,
+                backbone_output_stride, state.step, **kw)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        for p in state.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         state.optimizer.step()
-        state.queue_ptr = queue_enqueue(state.queue, state.queue_ptr,
-                                        aux["enqueue"]["queue"])
+        enq = aux["enqueue"]
+        if "queue" in enq:
+            state.queue_ptr = queue_enqueue(state.queue, state.queue_ptr, enq["queue"])
+        if "queue2" in enq:
+            state.queue2_ptr = queue_enqueue(state.queue2, state.queue2_ptr, enq["queue2"])
         state.step += 1
         metrics = dict(aux["metrics"])
         metrics["loss"] = loss.detach()
         if epoch_scalars:
-            metrics["_epoch_vec"] = torch.stack(
-                [metrics[src].float() for _, src in CP2_EPOCH_SCALARS])
+            metrics["_epoch_vec"] = epoch_vector(pt, metrics)
         return state, metrics
 
     return step_fn

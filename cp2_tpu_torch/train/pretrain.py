@@ -1,20 +1,22 @@
 """Pretraining entry point of the port (CLI-compatible with the JAX package's
 ``cp2_tpu/train/pretrain.py`` and the reference's main.py).
 
-Three raw-frame host streams (foreground and two backgrounds) are decoded
-on the host, pinned and copied to the card on a copy stream a batch ahead;
-each step augments the uint8 frames on the card and runs the CP2 step
-(dense loss on the hand-written kernel), per epoch, with cosine LR,
+Three raw-frame host streams (foreground, with SAM region maps when the
+mapping type needs them, and two backgrounds) are decoded on the host,
+pinned and copied to the card on a copy stream a batch ahead; each step
+augments the uint8 frames on the card and runs the step of the
+``--pretrain_type`` (CP2, PROPOSED, MOCO, BYOL, DENSECL, PROPOSED_V2; the
+CP2/PROPOSED dense loss on the hand-written kernel where
+``ssl.objectives.uses_dense_kernel`` says), per epoch, with cosine LR,
 metrics, checkpoints and resume.
 
 Run: ``python -m cp2_tpu_torch.train.pretrain --run_id r0 --log_dir
 /tmp/logs --data_dirs <dir> [--pretrain_type CP2] ...``
 
 It runs on the card; ``main(args, device="cpu")`` runs it on the CPU, as
-the tests do.  Ported so far: CP2 on one process.  A non-CP2
-``--pretrain_type``, non-unit correspondence weights or a
-``--negative_type`` other than NONE, ``--imagenet_checkpoint`` and more
-than one process raise ``NotImplementedError``.
+the tests do.  Ported so far: every pretrain type on one process;
+``--imagenet_checkpoint`` and more than one process raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from cp2_tpu_torch.checkpoint import (
 )
 from cp2_tpu_torch.checkpoint.io import is_checkpoint
 from cp2_tpu_torch.ssl.train_step import (
+    backbone_output_stride_of,
     cosine_lr_schedule,
     dense_output_stride_of,
     epoch_scalar_names,
@@ -215,16 +218,6 @@ def hparams_from_args(args, dataset_size: int):
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if args.pretrain_type != PretrainType.CP2:
-        raise NotImplementedError(
-            f"--pretrain_type {args.pretrain_type.name}: only CP2 is ported yet")
-    unit_weights = (args.lmbd_pixel_corr_weight == 1
-                    and args.lmbd_region_corr_weight == 1
-                    and args.lmbd_not_corr_weight == 1)
-    if not unit_weights or args.negative_type != NegativeType.NONE:
-        raise NotImplementedError(
-            "correspondence weights other than 1 and --negative_type other than "
-            "NONE (PROPOSED) are not ported yet")
     if args.imagenet_checkpoint and not args.pretrain_from_scratch:
         raise NotImplementedError(
             "--imagenet_checkpoint: the torchvision graft is not ported yet")
@@ -246,6 +239,7 @@ def main(args, device="cuda"):
     import cp2_tpu_torch
     from cp2_tpu_torch.config import Config
     from cp2_tpu_torch.data import HostDataLoader, PretrainDataSource, get_pretrain_files
+    from cp2_tpu_torch.data.datasets import region_mask_path
     from cp2_tpu_torch.data.prefetch import DevicePrefetcher, HostToDevice
     from cp2_tpu_torch.ssl import SSLEncoder, create_pretrain_state
     from cp2_tpu_torch.utils import (
@@ -285,19 +279,23 @@ def main(args, device="cuda"):
         dim=hp.dim,
         unet_truncated_dec_blocks=hp.unet_truncated_dec_blocks,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        img_hw=(args.img_height, args.img_width),
     )
 
     hw = (args.img_height, args.img_width)
+    # SAM region maps ride the foreground stream when the mapping reads
+    # region ids (reference loader.py:75-83)
+    need_region = hp.mapping_type in (MappingType.REGION_ID, MappingType.PIXEL_REGION_ID)
     base_hw = (args.img_height + 32, args.img_width + 32)
-    source = PretrainDataSource(files, base_hw)
     if args.raw_cache_dir:
         os.makedirs(args.raw_cache_dir, exist_ok=True)
 
-    def make_loader(loader_seed):
+    def make_loader(loader_seed, with_region=False):
         # the native C++ decode pool when its build works here, else the
         # Python loader (PIL), said once in the log
         if args.native_loader:
             from cp2_tpu_torch.native import (
+                NativePairLoader,
                 NativePretrainLoader,
                 build_error,
                 default_cache_path,
@@ -305,25 +303,34 @@ def main(args, device="cuda"):
             )
 
             if native_available():
+                threads = max(args.num_workers, 1)
+                if with_region:
+                    pairs = [(f, region_mask_path(f)) for f in files]
+                    cache = default_cache_path(
+                        args.raw_cache_dir, [p for pr in pairs for p in pr], base_hw,
+                        "region") if args.raw_cache_dir else None
+                    return NativePairLoader(pairs, args.batch_size, base_hw,
+                                            mode="region", threads=threads,
+                                            seed=loader_seed, cache_path=cache)
                 cache = default_cache_path(
                     args.raw_cache_dir, files, base_hw, "none"
                 ) if args.raw_cache_dir else None
                 return NativePretrainLoader(
                     files, args.batch_size, base_hw,
-                    threads=max(args.num_workers, 1), seed=loader_seed,
-                    cache_path=cache,
+                    threads=threads, seed=loader_seed, cache_path=cache,
                 )
             if loader_seed == args.seed:
                 logger.info("native loader unavailable "
                             f"({(build_error() or '').strip()[-300:]}); "
                             "using the Python loader (PIL)")
         return HostDataLoader(
-            source, args.batch_size, shuffle=True, drop_last=True, seed=loader_seed,
+            PretrainDataSource(files, base_hw, with_region_maps=with_region),
+            args.batch_size, shuffle=True, drop_last=True, seed=loader_seed,
             num_workers=args.num_workers,
         )
 
     # three streams: foreground two-crop + two backgrounds (main.py:281-283)
-    loader_fg = make_loader(args.seed)
+    loader_fg = make_loader(args.seed, with_region=need_region)
     loader_bg0 = make_loader(args.seed + 1024)
     loader_bg1 = make_loader(args.seed + 2048)
     logger.info(f"decoder: {type(loader_fg).__name__}")
@@ -350,25 +357,24 @@ def main(args, device="cuda"):
 
     os_ = dense_output_stride_of(model_cfg, args.backbone_type,
                                  hp.unet_truncated_dec_blocks)
+    bos = backbone_output_stride_of(model_cfg, args.backbone_type,
+                                    hp.unet_truncated_dec_blocks)
     # the quiet step runs most iterations; the metrics step (the full
     # reference scalar families) only on logging steps, and the visual
-    # step (level 2) on the first batch of a visual epoch.  Every step
-    # carries the cheap epoch family unless --metrics_level 0
+    # step (level 2, CP2/PROPOSED) on the first batch of a visual epoch.
+    # Every step carries the cheap epoch family unless --metrics_level 0
     want_epoch_scalars = args.metrics_level > 0
-    step_fn = make_pretrain_step(hp, os_, metrics_level=0,
-                                 epoch_scalars=want_epoch_scalars,
-                                 augment_fn=augment_fn)
-    step_fn_metrics = (
-        make_pretrain_step(hp, os_, metrics_level=args.metrics_level,
-                           epoch_scalars=want_epoch_scalars, augment_fn=augment_fn)
-        if args.metrics_level > 0 else step_fn
-    )
-    visuals_on = args.visual_freq > 0 and args.metrics_level > 0
-    step_fn_visual = (
-        make_pretrain_step(hp, os_, metrics_level=2,
-                           epoch_scalars=want_epoch_scalars, augment_fn=augment_fn)
-        if visuals_on else step_fn_metrics
-    )
+
+    def make_step(metrics_level):
+        return make_pretrain_step(hp, os_, backbone_output_stride=bos,
+                                  metrics_level=metrics_level,
+                                  epoch_scalars=want_epoch_scalars, augment_fn=augment_fn)
+
+    step_fn = make_step(0)
+    step_fn_metrics = make_step(args.metrics_level) if args.metrics_level > 0 else step_fn
+    visuals_on = (args.visual_freq > 0 and args.metrics_level > 0
+                  and args.pretrain_type in (PretrainType.CP2, PretrainType.PROPOSED))
+    step_fn_visual = make_step(2) if visuals_on else step_fn_metrics
 
     state = create_pretrain_state(model, tx, hp, seed=args.seed, device=device)
 
@@ -418,6 +424,10 @@ def main(args, device="cuda"):
         copy of batch i+1 overlaps step i)."""
         fg, bg0, bg1 = item
         raw = {"fg": fg["image"], "bg0": bg0["image"], "bg1": bg1["image"]}
+        if need_region:
+            # NativePairLoader calls the map "mask", PretrainDataSource
+            # "region_map"
+            raw["region_maps"] = fg["mask"] if "mask" in fg else fg["region_map"]
         if args.same_foreground:
             raw["bg1"] = raw["bg0"]
         return to_device(raw)

@@ -46,6 +46,79 @@ TINY_MODEL = dict(
 )
 
 
+# config_moco.py's shape at narrow widths: a plain-stride ResNet-18 (OS 32)
+# under the identity FCN head (num_convs=0) whose conv_seg the image-level
+# variants never reach
+MOCO_MODEL = dict(
+    type="EncoderDecoder",
+    backbone=dict(
+        type="ResNet",
+        depth=18,
+        stem_channels=8,
+        base_channels=8,
+        num_stages=4,
+        out_indices=(0, 1, 2, 3),
+        dilations=(1, 1, 1, 1),
+        strides=(1, 2, 2, 2),
+        norm_cfg=dict(type="BN"),
+    ),
+    decode_head=dict(
+        type="FCNHead",
+        num_convs=0,
+        concat_input=False,
+        in_channels=64,
+        in_index=3,
+        channels=64,
+        num_classes=2,
+        norm_cfg=dict(type="BN"),
+    ),
+)
+
+NARROW = dict(stem_channels=8, base_channels=8)  # the U-Nets' ResNet-50, narrowed
+
+
+def narrow_unet_backbones(patch) -> None:
+    """Make both packages' U-Net backbones a ResNet-50 of width 8.
+
+    The U-Nets build ``ResNet(depth=50)`` at its full width (64) in both
+    packages; ``patch`` (a ``pytest.MonkeyPatch``) swaps the name each
+    ``unet`` module looks up for the same ResNet with ``NARROW`` widths.
+    Keep it in force while the JAX side traces.
+    """
+    import functools
+
+    import cp2_tpu.models.unet as jax_unet
+    import cp2_tpu_torch.models.unet as torch_unet
+    from cp2_tpu.models.resnet import ResNet as JaxResNet
+    from cp2_tpu_torch.models.resnet import ResNet
+
+    class NarrowJaxResNet(JaxResNet):
+        stem_channels: int = NARROW["stem_channels"]
+        base_channels: int = NARROW["base_channels"]
+
+    patch.setattr(jax_unet, "ResNet", NarrowJaxResNet)
+    patch.setattr(torch_unet, "ResNet", functools.partial(ResNet, **NARROW))
+
+
+def jax_variant_encoder(pretrain_type, model_cfg, backbone_type=None, dim: int = DIM):
+    from cp2_tpu.ssl import SSLEncoder
+    from cp2_tpu.types import BackboneType
+
+    return SSLEncoder(model_cfg=model_cfg, pretrain_type=pretrain_type,
+                      backbone_type=backbone_type or BackboneType.DEEPLABV3, dim=dim)
+
+
+def torch_variant_encoder(pretrain_type, model_cfg, backbone_type=None, dim: int = DIM,
+                          hw: int = HW):
+    """The port's twin of ``jax_variant_encoder``; enums by name."""
+    from cp2_tpu_torch.ssl import SSLEncoder
+    from cp2_tpu_torch.types import BackboneType, PretrainType
+
+    bt = BackboneType[backbone_type.name] if backbone_type else BackboneType.DEEPLABV3
+    return SSLEncoder(model_cfg, pretrain_type=PretrainType[pretrain_type.name],
+                      backbone_type=bt, dim=dim, img_hw=(hw, hw))
+
+
 def jax_encoder():
     from cp2_tpu.ssl import SSLEncoder
     from cp2_tpu.types import BackboneType, PretrainType
@@ -89,18 +162,28 @@ def _fill(tree, r: np.random.RandomState, residual_scale: float, module: str = "
     return out
 
 
-def random_flax_variables(model, seed: int = 0, residual_scale: float = 0.25):
+def random_flax_variables(model, seed: int = 0, residual_scale: float = 0.25,
+                          hw: int = HW, init_all: bool = False):
     """``(params, batch_stats)`` of ``model`` as nested dicts of numpy,
-    shapes from ``jax.eval_shape`` (no init compile), values from numpy."""
+    shapes from ``jax.eval_shape`` (no init compile), values from numpy.
+    ``init_all`` builds the whole tree of an ``SSLEncoder`` variant (its
+    ``init_all`` method) instead of the dense path's."""
     import jax
     import jax.numpy as jnp
 
+    x = jnp.zeros((1, hw, hw, 3), jnp.float32)
     shapes = jax.eval_shape(
-        lambda: model.init(jax.random.PRNGKey(0),
-                           jnp.zeros((1, HW, HW, 3), jnp.float32), train=False))
+        lambda: model.init(jax.random.PRNGKey(0), x, method="init_all") if init_all
+        else model.init(jax.random.PRNGKey(0), x, train=False))
     r = np.random.RandomState(seed)
+    return fill_variables(shapes, r, residual_scale)
+
+
+def fill_variables(shapes, r: np.random.RandomState, residual_scale: float = 0.25):
+    """numpy ``(params, batch_stats)`` for a tree of shape structs from
+    ``jax.eval_shape`` of a flax ``init`` (see ``_fill``)."""
     params = _fill(shapes["params"], r, residual_scale)
-    stats = _fill(shapes["batch_stats"], r, residual_scale)
+    stats = _fill(shapes.get("batch_stats", {}), r, residual_scale)
     return params, stats
 
 

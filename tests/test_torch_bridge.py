@@ -3,7 +3,8 @@
 flax → torch → flax is the identity on params and batch_stats, every flax
 leaf lands on exactly one torch tensor and every torch tensor of the port's
 module is filled (``load_state_dict(strict=True)``), and a whole
-``PretrainState`` crosses both ways unchanged.
+``PretrainState``, both queues included, crosses both ways unchanged.  The
+other variants' trees: ``tests/test_torch_heads_necks.py``.
 """
 
 import copy
@@ -107,18 +108,22 @@ def test_pretrain_state_round_trip(variables):
         "ema_batch_stats": ema_stats,
         "queue": unit_queue(5, 64),
         "queue_ptr": np.int32(6),
+        "queue2": unit_queue(6, 64),
+        "queue2_ptr": np.int32(10),
         "step": np.int32(3),
     }
     hp = SSLHyperParams.for_variant(PretrainType.CP2, dim=DIM, queue_len=64)
     state = create_pretrain_state(torch_encoder(), make_optimizer("sgd", 0.1), hp,
                                   device="cpu")
     load_pretrain_state_from_flax(state, tree)
-    assert (state.step, state.queue_ptr) == (3, 6)
+    assert (state.step, state.queue_ptr, state.queue2_ptr) == (3, 6, 10)
     back = pretrain_state_to_flax(state)
     for name in ("params", "batch_stats", "ema_params", "ema_batch_stats"):
         _assert_same_tree(back[name], tree[name])
     np.testing.assert_array_equal(back["queue"], tree["queue"])
+    np.testing.assert_array_equal(back["queue2"], tree["queue2"])
     assert int(back["queue_ptr"]) == 6 and int(back["step"]) == 3
+    assert int(back["queue2_ptr"]) == 10
     # the snapshot is a copy, not a view of the live state
     with torch.no_grad():
         state.queue.zero_()

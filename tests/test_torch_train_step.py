@@ -84,7 +84,7 @@ from cp2_tpu_torch.checkpoint.bridge import (
 )
 from cp2_tpu_torch.ssl import SSLHyperParams, create_pretrain_state, output_stride_of
 from cp2_tpu_torch.ssl.train_step import (
-    CP2_EPOCH_SCALARS,
+    epoch_scalar_names as torch_epoch_scalar_names,
     make_optimizer,
     make_pretrain_step,
 )
@@ -110,6 +110,8 @@ def _initial_tree():
         "ema_batch_stats": copy.deepcopy(stats),
         "queue": unit_queue(1, QUEUE_LEN),
         "queue_ptr": np.int32(0),
+        "queue2": unit_queue(2, QUEUE_LEN),
+        "queue2_ptr": np.int32(0),
         "step": np.int32(0),
     }
 
@@ -128,8 +130,8 @@ def _jax_run(tree, batches, lr, epoch_scalars, two_pass=True, metrics_level=0,
         opt_state=tx.init(tree["params"]),
         queue=jnp.asarray(tree["queue"]),
         queue_ptr=jnp.asarray(tree["queue_ptr"]),
-        queue2=jnp.asarray(tree["queue"]),
-        queue2_ptr=jnp.zeros((), jnp.int32),
+        queue2=jnp.asarray(tree["queue2"]),
+        queue2_ptr=jnp.asarray(tree["queue2_ptr"]),
     )
     step = jax.jit(jax_make_pretrain_step(
         model, tx, hp, jax_output_stride_of(TINY_MODEL),
@@ -229,7 +231,7 @@ def test_cp2_step_matches_default_jax_step(runs):
 def test_epoch_scalars_match_jax(runs):
     """``epoch_scalars=True``: the packed ``_epoch_vec`` of every step, in
     the JAX package's ``epoch_scalar_names`` order, and the same state."""
-    assert tuple(name for name, _ in CP2_EPOCH_SCALARS) == epoch_scalar_names(
+    assert torch_epoch_scalar_names(PretrainType.CP2) == epoch_scalar_names(
         JaxPretrainType.CP2)
     start, (jax_out, torch_out) = runs(3, epoch_scalars=True)
     for (_, ref_metrics), (_, metrics) in zip(jax_out, torch_out):

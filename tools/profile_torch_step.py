@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of the port's full-width CP2 step goes, on one NVIDIA card.
+"""Where the time of the port's full-width pretrain step goes, on one NVIDIA card.
 
     python3 tools/profile_torch_step.py [--steps 3] [--cli]
+        [--pretrain_type CP2] [--config PATH] [--backbone_type DEEPLABV3]
 
-Builds the step as ``chip_smoke.py`` does (dilated ResNet-50 + ASPP-512,
-contrast dim 128, queue 65536, 224x224, batch 32, bfloat16 model, SGD),
-warms it up, then:
+Builds the step as ``chip_smoke.py`` does (by default CP2: dilated
+ResNet-50 + ASPP-512, contrast dim 128, queue 65536, 224x224, batch 32,
+bfloat16 model, SGD), warms it up, then:
 
 1. times ``--steps`` steps with the host clock, each ending in
    ``torch.cuda.synchronize()``, with cuDNN's default algorithm choice;
@@ -39,6 +40,15 @@ step), and the epoch scalars; steps 1 and 2 run on it, then
    256x256 PNGs as fast as they can in the background, beside the frames
    per second they decode: the host's share of the CLI's time.
 
+``--pretrain_type`` profiles another variant's step the same way, with
+the hyperparameters of the repo's run scripts (PROPOSED: ``proposed.sh``'s
+PIXEL_REGION_ID 10/1/0; PROPOSED_V2: ``sym-coord.sh``'s symmetric loss,
+predictor and coordinate 0.5) and, unless ``--config`` says otherwise,
+``config_moco.py`` for MOCO, BYOL and DENSECL and ``config_pretrain.py``
+for the rest; ``--backbone_type`` takes CP2 onto a U-Net.  Items 4 and 7
+time the CP2 ASPP head and phase 5's CP2 step, and run for the default
+CP2 step only.
+
 It prints the card's name and power limit beside the numbers and writes
 the profiler table and a Chrome trace under ``chiprun_out/``.
 """
@@ -62,23 +72,40 @@ sys.path.insert(0, ROOT)
 from chip_smoke import gpu_line, pre_augmented_batch  # noqa: E402
 
 
-def build_step(cli=False):
+# the run scripts' hyperparameters of the variants that take some
+VARIANT_HP = {
+    "PROPOSED": dict(mapping_type="PIXEL_REGION_ID", lmbd_pixel_corr_weight=10.0,
+                     lmbd_region_corr_weight=1.0, lmbd_not_corr_weight=0.0),
+    "PROPOSED_V2": dict(use_symmetrical_loss=True, use_predictor=True, lmbd_coordinate=0.5),
+}
+
+
+def build_step(cli=False, pretrain_type="CP2", config=None, backbone_type="DEEPLABV3"):
     import cp2_tpu_torch
     from cp2_tpu_torch.augment import AugmentConfig, pretrain_batch_augment
     from cp2_tpu_torch.config import Config
     from cp2_tpu_torch.ssl import SSLEncoder, SSLHyperParams, create_pretrain_state
-    from cp2_tpu_torch.ssl import output_stride_of
-    from cp2_tpu_torch.ssl.train_step import make_optimizer, make_pretrain_step
-    from cp2_tpu_torch.types import PretrainType
+    from cp2_tpu_torch.ssl.train_step import (
+        backbone_output_stride_of, dense_output_stride_of, make_optimizer,
+        make_pretrain_step)
+    from cp2_tpu_torch.types import BackboneType, MappingType, PretrainType
 
-    cfg = Config.fromfile(os.path.join(os.path.dirname(cp2_tpu_torch.__file__),
-                                       "configs", "config_pretrain.py"))
-    model_cfg = dict(cfg.model)
-    hp = SSLHyperParams.for_variant(PretrainType.CP2)
-    model = SSLEncoder(model_cfg, dim=128, dtype=torch.bfloat16)
+    pt, bt = PretrainType[pretrain_type], BackboneType[backbone_type]
+    if config is None:
+        name = ("config_moco.py" if pretrain_type in ("MOCO", "BYOL", "DENSECL")
+                else "config_pretrain.py")
+        config = os.path.join(os.path.dirname(cp2_tpu_torch.__file__), "configs", name)
+    model_cfg = dict(Config.fromfile(config).model)
+    kw = dict(VARIANT_HP.get(pretrain_type, {}))
+    if "mapping_type" in kw:
+        kw["mapping_type"] = MappingType[kw["mapping_type"]]
+    hp = SSLHyperParams.for_variant(pt, backbone_type=bt, **kw)
+    model = SSLEncoder(model_cfg, pretrain_type=pt, backbone_type=bt, dim=hp.dim,
+                       dtype=torch.bfloat16, img_hw=(224, 224))
     state = create_pretrain_state(model, make_optimizer("sgd", 1e-3), hp, seed=0)
+    strides = (dense_output_stride_of(model_cfg, bt), backbone_output_stride_of(model_cfg, bt))
     if not cli:
-        step = make_pretrain_step(hp, output_stride_of(model_cfg), augment_fn=None)
+        step = make_pretrain_step(hp, *strides, augment_fn=None)
         return state, step, pre_augmented_batch(32, 224, 0, "cuda"), None
     cfg = AugmentConfig(out_hw=(224, 224))
 
@@ -86,7 +113,7 @@ def build_step(cli=False):
         return pretrain_batch_augment(generator, raw, cfg)
 
     def make(level):
-        return make_pretrain_step(hp, output_stride_of(model_cfg), metrics_level=level,
+        return make_pretrain_step(hp, *strides, metrics_level=level,
                                   epoch_scalars=True, augment_fn=augment_fn)
 
     g = torch.Generator().manual_seed(0)
@@ -135,9 +162,11 @@ def timed(state, step, batch, n):
     return state, times
 
 
-def cli_breakdown(state, raw, step_quiet, step_logged, augment_fn, n, step_device_ms):
+def cli_breakdown(state, raw, step_quiet, step_logged, augment_fn, n, step_device_ms,
+                  layout_experiment=True):
     """The augmentation alone under the profiler, by kernel; the logged
-    step's host-clock time."""
+    step's host-clock time; the decode contention; and, for the CP2 step,
+    phase 5's step by input layout."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -170,18 +199,20 @@ def cli_breakdown(state, raw, step_quiet, step_logged, augment_fn, n, step_devic
           f"(median {statistics.median(t_logged):.2f})")
 
     contention = decode_contention(state, step_quiet, raw, n)
-    step, batch = plain_step()
     layouts = {}
-    for name, swap in (("contiguous NHWC", False), ("as augmented, (N, W, H, C) in memory", True)):
-        b = dict(batch)
-        if swap:
-            for k in ("img_a", "img_b"):
-                b[k] = b[k].transpose(1, 2).contiguous().transpose(1, 2)
-        state, _ = timed(state, step, b, 3)  # warm-up
-        state, t = timed(state, step, b, n)
-        layouts[name] = t
-        print(f"pre-augmented step, images {name}: {['%.2f' % x for x in t]} "
-              f"(median {statistics.median(t):.2f})")
+    if layout_experiment:
+        step, batch = plain_step()
+        for name, swap in (("contiguous NHWC", False),
+                           ("as augmented, (N, W, H, C) in memory", True)):
+            b = dict(batch)
+            if swap:
+                for k in ("img_a", "img_b"):
+                    b[k] = b[k].transpose(1, 2).contiguous().transpose(1, 2)
+            state, _ = timed(state, step, b, 3)  # warm-up
+            state, t = timed(state, step, b, n)
+            layouts[name] = t
+            print(f"pre-augmented step, images {name}: {['%.2f' % x for x in t]} "
+                  f"(median {statistics.median(t):.2f})")
     return {"augment_wall_ms": wall_ms / n, "augment_device_ms": aug_ms / n,
             "augment_kernels": kernels, "logged_step_ms": t_logged,
             "pre_augmented_step_ms_by_layout": layouts, "decode_contention": contention}
@@ -250,6 +281,11 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--cli", action="store_true",
                         help="profile the pretrain CLI's quiet step on raw frames")
+    parser.add_argument("--pretrain_type", default="CP2",
+                        choices=["CP2", "PROPOSED", "MOCO", "BYOL", "DENSECL", "PROPOSED_V2"])
+    parser.add_argument("--config", default=None, help="model config file (see above)")
+    parser.add_argument("--backbone_type", default="DEEPLABV3",
+                        choices=["DEEPLABV3", "UNET_ENCODER_ONLY", "UNET_TRUNCATED"])
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device", file=sys.stderr)
@@ -260,8 +296,11 @@ def main() -> int:
     print(f"device: {card}")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    state, step, batch, cli = build_step(args.cli)
-    tag = "cli_" if args.cli else ""
+    state, step, batch, cli = build_step(args.cli, args.pretrain_type, args.config,
+                                         args.backbone_type)
+    flagship = args.pretrain_type == "CP2" and args.backbone_type == "DEEPLABV3"
+    tag = ("cli_" if args.cli else "") + ("" if flagship and args.config is None else
+                                          f"{args.pretrain_type}_{args.backbone_type}_")
 
     state, _ = timed(state, step, batch, 3)  # warm-up
     state, t_default = timed(state, step, batch, args.steps)
@@ -291,11 +330,13 @@ def main() -> int:
           f"({100 * dense_ms / device_ms:.2f} % of device time)")
     prof.export_chrome_trace(os.path.join(out_dir, f"torch_{tag}step_trace.json"))
     if cli is not None:
-        summary = cli_breakdown(state, batch, step, *cli, args.steps, device_ms)
+        summary = cli_breakdown(state, batch, step, *cli, args.steps, device_ms,
+                                layout_experiment=flagship)
         summary.update({"card": card, "steps": args.steps, "step_ms_default": t_default,
                         "profiled_wall_ms": wall_ms, "device_busy_ms": device_ms,
-                        "dense_loss_ms": dense_ms, "top_kernels": rows})
-        with open(os.path.join(out_dir, "torch_cli_step_profile.json"), "w") as f:
+                        "dense_loss_ms": dense_ms, "top_kernels": rows,
+                        "pretrain_type": args.pretrain_type})
+        with open(os.path.join(out_dir, f"torch_{tag}step_profile.json"), "w") as f:
             json.dump(summary, f, indent=1)
         return 0
 
@@ -306,13 +347,14 @@ def main() -> int:
           f"(median {statistics.median(t_bench):.2f})")
 
     torch.backends.cudnn.benchmark = False
-    branches = aspp_branch_times(state.model)
+    branches = aspp_branch_times(state.model) if flagship else None
 
     summary = {"card": card, "steps": args.steps, "step_ms_default": t_default,
                "step_ms_cudnn_benchmark": t_bench, "profiled_wall_ms": wall_ms,
                "device_busy_ms": device_ms, "dense_loss_ms": dense_ms,
-               "top_kernels": rows, "aspp_branches": branches}
-    with open(os.path.join(out_dir, "torch_step_profile.json"), "w") as f:
+               "top_kernels": rows, "aspp_branches": branches,
+               "pretrain_type": args.pretrain_type}
+    with open(os.path.join(out_dir, f"torch_{tag}step_profile.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
 
