@@ -60,7 +60,24 @@ Phases, in order; any failure exits non-zero:
             the variant's step and epoch keys, both queue pointers, the
             dense-loss launches per route, the kernel against its plain
             version on UNET_TRUNCATED's own features (S² = 784), a 1-step
-            DenseCL ``--resume``; step times, images/s and peak memory.
+            DenseCL ``--resume``; step times, images/s and peak memory;
+10. finetune the finetune path at a narrow width on the card against the
+            CPU, float32: the polyp and lemon augmentation with grid
+            distortion forced on, and the val flips (images to 1e-6, masks
+            equal), one train step of ``config_finetune.py``'s structure at
+            width 8 with an auxiliary head (loss, gradients and BatchNorm
+            statistics to 1e-4), an eval step with a padded row (confusion
+            counts equal); no dense-loss launch;
+11. ft cli  the finetune CLI (``cp2_tpu_torch.train.finetune.main``) at full
+            width from phase 7's CP2 checkpoints: polyp on
+            ``config_finetune.py`` (dilated ResNet-50, ASPP classifier),
+            352x352, batch 16, bfloat16, 2 epochs of 4 steps on synthetic
+            384x448 PNG pairs; lemon (544x1024, 12 classes,
+            ``--fast_dev_run``); ``--linear_evaluation --fast_dev_run``; the
+            graft loads tensors, losses finite, the monitored key in
+            ``metrics.jsonl``, one best checkpoint left, the test keys, no
+            dense-loss launch; quiet step, images/s, eval time per epoch,
+            peak memory, and the step with a channels-last input beside it.
 
 The last lines are one JSON object on the kernels (with their launches on
 every path), the card's name and power limit, and
@@ -843,7 +860,7 @@ def check_cli(dl):
         f"{start[1] * 1e3:.1f} ms ({start[2] * 1e3:.1f} ms since the epoch's start); end to "
         f"end {ips:.1f} images/s, {ips_rest:.1f} without the first step (loader, copy and "
         f"augmentation included); peak memory {peak / 2**30:.2f} GiB; on {gpu_line()}")
-    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    # the run's checkpoints stay until phase 11 has finetuned from them
     return launches, dict(
         steps=steps, step_call_ms=[r[1] * 1e3 for r in rows],
         step_gap_ms=[r[2] * 1e3 for r in rows], step_levels=[r[0] for r in rows],
@@ -1194,6 +1211,408 @@ def check_cli_variants(dl):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the finetune path at a narrow width, card against CPU
+# ---------------------------------------------------------------------------
+
+# config_finetune.py's structure at width 8 (dilated ResNet-50, OS 16, the
+# ASPP classifier) with an FCN auxiliary head; no dropout, so that both
+# devices compute the same function
+SMALL_SEG_MODEL = dict(
+    type="EncoderDecoder",
+    backbone=dict(SMALL_MODEL["backbone"]),
+    decode_head=dict(type="ASPPHead", in_channels=256, in_index=3, channels=16,
+                     dilations=(1, 6, 12, 18), dropout_ratio=0.0, num_classes=2,
+                     norm_cfg=dict(type="BN")),
+    auxiliary_head=dict(type="FCNHead", in_channels=128, in_index=2, channels=8, num_convs=1,
+                        concat_input=False, dropout_ratio=0.0, num_classes=2,
+                        norm_cfg=dict(type="BN")),
+)
+FT_AUG_ATOL = 1e-6
+
+
+def seg_batch(n, hw, seed, classes=2):
+    """Images whose brightness and contrast differ per image (the ASPP
+    image-pool branch normalises per-image means over the batch), blocky
+    masks; numpy."""
+    r = np.random.RandomState(seed)
+    img = r.rand(n, hw, hw, 3) * r.uniform(0.2, 1.0, (n, 1, 1, 3)) + r.uniform(0, 0.5, (n, 1, 1, 3))
+    mask = r.randint(0, classes, (n, hw // 8, hw // 8)).repeat(8, 1).repeat(8, 2)
+    return np.clip(img, 0, 1).astype(np.float32), mask.astype(np.int32)
+
+
+def check_finetune_augment():
+    """The finetune augmentation of polyp and lemon (grid distortion forced
+    on), parameters drawn once on the CPU: the card's images within
+    ``FT_AUG_ATOL`` of the CPU's, masks equal; and the val flips."""
+    import dataclasses
+
+    from cp2_tpu_torch.augment import pipeline as P
+
+    out = {}
+    cases = {"polyp": (P.FinetuneAugmentConfig(distort_p=1.0), 16, (352, 352), 2),
+             "lemon": (dataclasses.replace(P.lemon_augment_config(), distort_p=1.0), 4,
+                       (544, 1024), 12)}
+    for name, (cfg, n, hw, classes) in cases.items():
+        r = np.random.RandomState(5)
+        img = torch.from_numpy(r.randint(0, 256, (n, *hw, 3), dtype=np.uint8))
+        mask = torch.from_numpy(r.randint(0, classes, (n, *hw)).astype(np.int32))
+        params = P.sample_finetune_params(torch.Generator().manual_seed(1), n, hw, cfg)
+        ref_img, ref_mask = P.apply_finetune_augment(img, mask, params)
+        got_img, got_mask = P.apply_finetune_augment(img.cuda(), mask.cuda(),
+                                                     to_device(params, "cuda"))
+        err = float((got_img.cpu() - ref_img).abs().max())
+        masks_equal = torch.equal(got_mask.cpu(), ref_mask)
+        moved = int((ref_mask != mask).sum())
+        ev = P.sample_eval_params(torch.Generator().manual_seed(2), n, vflip_p=0.0,
+                                  distort_p=1.0)
+        ref_ev = P.apply_eval_augment(ref_img, ref_mask, ev)
+        got_ev = P.apply_eval_augment(ref_img.cuda(), ref_mask.cuda(), to_device(ev, "cuda"))
+        ev_err = float((got_ev[0].cpu() - ref_ev[0]).abs().max())
+        ev_equal = torch.equal(got_ev[1].cpu(), ref_ev[1])
+        ok = err <= FT_AUG_ATOL and masks_equal and ev_err <= FT_AUG_ATOL and ev_equal
+        log(f"  augment {name} ({n}, {hw[0]}, {hw[1]}): images max abs diff {err:.2e}, masks "
+            f"{'equal' if masks_equal else 'DIFFER'} ({moved} mask pixels moved by the warp and "
+            f"flips); val flips + distortion {ev_err:.2e}, masks "
+            f"{'equal' if ev_equal else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 10: the {name} augmentation on the card disagrees")
+        out[name] = dict(max_abs_err=err, eval_max_abs_err=ev_err, mask_pixels_moved=moved)
+    return out
+
+
+def check_finetune_step(dl):
+    """One float32 train step and a padded eval step of the narrow segmentor
+    from one seed on both devices."""
+    from cp2_tpu_torch.models import build_segmentor
+    from cp2_tpu_torch.models.layers import init_flax_like_
+    from cp2_tpu_torch.ops.metrics import ConfusionState
+    from cp2_tpu_torch.train import segmentation_task as task
+
+    img, mask = seg_batch(8, 64, 0)
+    ev_img, ev_mask = seg_batch(4, 64, 1)
+    valid = np.array([True, True, True, False])
+    train_step, eval_step, _ = task.make_seg_steps(2, (64, 64))
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = init_flax_like_(build_segmentor(SMALL_SEG_MODEL), torch.Generator().manual_seed(0))
+        state = task.create_seg_state(model, task.make_adam(1e-4, 1e-4), device)
+        batch = {"image": torch.from_numpy(img).to(device), "mask": torch.from_numpy(mask).to(device)}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            dl.reset_launch_counts()
+        state, conf, m = train_step(state, batch, torch.Generator(device=device).manual_seed(0),
+                                    ConfusionState.create(2, device))
+        ev_batch = {"image": torch.from_numpy(ev_img).to(device),
+                    "mask": torch.from_numpy(ev_mask).to(device),
+                    "valid": torch.from_numpy(valid).to(device)}
+        ev_conf, ev_m = eval_step(state, ev_batch, ConfusionState.create(2, device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(dl.LAUNCHES)
+        out[device] = dict(
+            loss=m["loss"].item(),
+            grads={k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+            buffers={k: b.detach().cpu() for k, b in state.model.named_buffers()},
+            conf=conf.matrix.cpu(), ev_conf=ev_conf.matrix.cpu(), ev_loss=ev_m["loss"].item())
+        del state, model
+    cpu, gpu = out["cpu"], out["cuda"]
+    err_loss = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    err_grad = max(max_rel(gpu["grads"][k], v) for k, v in cpu["grads"].items() if v.abs().max() > 0)
+    err_stats = max(max_rel(gpu["buffers"][k], v) for k, v in cpu["buffers"].items())
+    err_ev = abs(gpu["ev_loss"] - cpu["ev_loss"]) / abs(cpu["ev_loss"])
+    counts_equal = torch.equal(gpu["conf"], cpu["conf"]) and torch.equal(gpu["ev_conf"], cpu["ev_conf"])
+    padded_out = int(cpu["ev_conf"].sum()) == 3 * 64 * 64
+    ok = (err_loss <= 1e-4 and err_grad <= 1e-4 and err_stats <= 1e-4 and err_ev <= 1e-4
+          and counts_equal and padded_out and all(v == 0 for v in launches.values()))
+    log(f"  finetune step, card vs CPU (float32, batch 8, 64x64): loss rel {err_loss:.2e}, "
+        f"gradients {err_grad:.2e}, BatchNorm stats {err_stats:.2e} (each normwise, 1e-4); "
+        f"eval with a padded row: loss rel {err_ev:.2e}, confusion counts "
+        f"{'equal' if counts_equal else 'DIFFER'} ({int(cpu['ev_conf'].sum())} pixels counted); "
+        f"dense-loss launches {launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 10: the finetune step on the card disagrees with the CPU")
+    return launches, dict(loss_rel=err_loss, grad_rel=err_grad, stats_rel=err_stats,
+                          eval_loss_rel=err_ev)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the finetune CLI at full width
+# ---------------------------------------------------------------------------
+
+FT_WORK = os.path.join("work_dirs", "chip_smoke_finetune")
+FT_BATCH, FT_EPOCHS = 16, 2
+FT_SPLITS = {"train": 4 * FT_BATCH, "val": FT_BATCH + 4, "test": 2 * FT_BATCH + 4}
+LEMON_SPLITS = {"train": 2 * FT_BATCH, "val": 8, "test": FT_BATCH}
+
+
+def synthetic_pairs(root, splits, hw, classes, seed):
+    """Smooth RGB frames with blob masks (binary 0/255 for 2 classes, else
+    ids 0..classes-1 in blocks) as PNG pairs under ``root/images`` and
+    ``root/masks``, stems carrying their split."""
+    r = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, hw[0]), np.linspace(0, 1, hw[1]), indexing="ij")
+    for d in ("images", "masks"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    count = 0
+    for split, n in splits.items():
+        for i in range(n):
+            f = r.uniform(1, 6, (3, 2))
+            ph = r.uniform(0, 2 * np.pi, (3,))
+            img = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (f[c, 0] * yy + f[c, 1] * xx) + ph[c])
+                            for c in range(3)], axis=-1)
+            if classes == 2:
+                cy, cx, ry, rx = r.uniform(0.3, 0.7), r.uniform(0.3, 0.7), *r.uniform(0.1, 0.3, 2)
+                blob = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+                img[blob] = 0.6 * img[blob] + 0.4 * np.array([0.9, 0.3, 0.3])
+                mask = blob.astype(np.uint8) * 255
+            else:
+                ids = r.randint(0, classes, (hw[0] // 32 + 1, hw[1] // 32 + 1))
+                mask = ids.repeat(32, 0).repeat(32, 1)[:hw[0], :hw[1]].astype(np.uint8)
+            stem = f"{split}_{i:04d}.png"
+            write_png(os.path.join(root, "images", stem), (np.clip(img, 0, 1) * 255).astype(np.uint8))
+            write_png(os.path.join(root, "masks", stem), mask)
+            count += 1
+    return count
+
+
+class FinetuneClock:
+    """Wraps ``make_seg_steps`` so that every train and eval step ends in
+    ``torch.cuda.synchronize()``; records (kind, call s, since the previous
+    train step's end s, loss) per call."""
+
+    def __init__(self, make):
+        self.make = make
+        self.rows = []
+        self.last = None
+
+    def __call__(self, *a, **kw):
+        train_step, eval_step, metrics_of = self.make(*a, **kw)
+
+        def timed_train(state, batch, generator, confusion):
+            start = time.perf_counter()
+            state, confusion, m = train_step(state, batch, generator, confusion)
+            loss = m["loss"].item()
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.rows.append(("train", now - start, now - self.last, loss))
+            self.last = now
+            return state, confusion, m
+
+        def timed_eval(state, batch, confusion):
+            start = time.perf_counter()
+            confusion, m = eval_step(state, batch, confusion)
+            loss = m["loss"].item()
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.rows.append(("eval", now - start, now - self.last, loss))
+            return confusion, m
+
+        return timed_train, timed_eval, metrics_of
+
+
+class ChannelsLast(torch.nn.Module):
+    """The segmentor fed a channels-last copy of its input: what the step
+    would run without ``seg_forward``'s explicit NCHW."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.auxiliary_head = inner.auxiliary_head
+
+    def forward(self, x, **kw):
+        return self.inner(x.contiguous(memory_format=torch.channels_last), **kw)
+
+
+def time_layouts(config, hw):
+    """The finetune train step on one full-width batch (the polyp run's
+    config, batch 16, bfloat16, random weights), the model input contiguous
+    NCHW as ``seg_forward`` makes it, and channels-last: median of 5 calls
+    after 2 warm-up calls each."""
+    from cp2_tpu_torch.augment import FinetuneAugmentConfig, finetune_augment_batch
+    from cp2_tpu_torch.config import Config
+    from cp2_tpu_torch.models import build_segmentor
+    from cp2_tpu_torch.models.layers import init_flax_like_
+    from cp2_tpu_torch.ops.metrics import ConfusionState
+    from cp2_tpu_torch.train import segmentation_task as task
+
+    cfg = Config.fromfile(config)
+    cfg.model.decode_head.num_classes = 2
+    model_cfg = dict(cfg.model, dtype=torch.bfloat16)
+    model = init_flax_like_(build_segmentor(model_cfg), torch.Generator().manual_seed(0))
+    state = task.create_seg_state(model, task.make_adam(1e-4, 1e-4), "cuda")
+    r = np.random.RandomState(0)
+    raw = torch.from_numpy(r.randint(0, 256, (FT_BATCH, *hw, 3), dtype=np.uint8)).cuda()
+    raw_mask = torch.from_numpy(r.randint(0, 2, (FT_BATCH, *hw)).astype(np.int32)).cuda()
+    images, masks = finetune_augment_batch(torch.Generator(device="cuda").manual_seed(0), raw,
+                                           raw_mask, FinetuneAugmentConfig())
+    batch = {"image": images, "mask": masks}
+    train_step, _, _ = task.make_seg_steps(2, hw)
+    out = {}
+    for name, net in (("nchw", model), ("channels_last", ChannelsLast(model))):
+        probe = task.SegTrainState(model=net, optimizer=state.optimizer, step=0)
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            train_step(probe, batch, torch.Generator(device="cuda").manual_seed(0),
+                       ConfusionState.create(2, "cuda"))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(times[2:])
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_seconds(rows, evals_per_epoch):
+    """Each epoch's eval time: from the end of its last train step to the
+    end of its ``evals_per_epoch``-th eval call (val with flips, then the
+    pseudo-test), from ``FinetuneClock`` rows."""
+    out = []
+    for k, row in enumerate(rows):
+        if row[0] != "train" or k + 1 == len(rows) or rows[k + 1][0] != "eval":
+            continue
+        following = []
+        for later in rows[k + 1:]:
+            if later[0] != "eval":
+                break
+            following.append(later)
+        out.append(following[evals_per_epoch - 1][2] if len(following) >= evals_per_epoch
+                   else math.nan)
+    return out
+
+
+def run_finetune(finetune, argv, clock, reports):
+    args = finetune.get_args(argv)
+    clock.rows = []
+    reports.clear()
+    clock.last = time.perf_counter()
+    return finetune.main(args), args
+
+
+def check_finetune_cli(dl):
+    """Phase 11; returns the launches by run and the runs' numbers."""
+    from cp2_tpu_torch.checkpoint import convert
+    from cp2_tpu_torch.ops import metrics
+    from cp2_tpu_torch.train import finetune, segmentation_task
+    import cp2_tpu_torch
+
+    shutil.rmtree(FT_WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    polyp = os.path.join(FT_WORK, "polyp")
+    lemon = os.path.join(FT_WORK, "lemon")
+    n_polyp = synthetic_pairs(polyp, FT_SPLITS, (384, 448), 2, seed=3)
+    n_lemon = synthetic_pairs(lemon, LEMON_SPLITS, (272, 512), 12, seed=4)
+    log(f"  wrote {n_polyp} polyp pairs of 384x448 and {n_lemon} lemon pairs of 272x512 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pretrain_run = os.path.join(CLI_WORK, "logs", "smoke")  # phase 7's CP2 checkpoints
+    logs = os.path.join(FT_WORK, "logs")
+    config = os.path.join(os.path.dirname(cp2_tpu_torch.__file__), "configs",
+                          "config_finetune.py")
+    reports = []
+    real_load = convert.load_pretrained_into_segmentor
+
+    def recording_load(*a, **kw):
+        merged, report = real_load(*a, **kw)
+        reports.append(report)
+        return merged, report
+
+    clock = FinetuneClock(segmentation_task.make_seg_steps)
+    segmentation_task.make_seg_steps = clock
+    convert.load_pretrained_into_segmentor = recording_load
+    common = ["--config", config, "--batch_size", str(FT_BATCH), "--visualize_freq", "0",
+              "--prefetch_depth", "2", "--pretrain_type", "CP2", "--pretrain_path", pretrain_run,
+              "--log_dir", logs]
+    runs = {
+        "polyp": ["--run_id", "polyp", "--img_dirs", os.path.join(polyp, "images"),
+                  "--mask_dirs", os.path.join(polyp, "masks"), "--epochs", str(FT_EPOCHS)],
+        "lemon": ["--run_id", "lemon", "--img_dirs", os.path.join(lemon, "images"),
+                  "--mask_dirs", os.path.join(lemon, "masks"), "--lemon_data", "--fast_dev_run"],
+        "linear_evaluation": ["--run_id", "linear", "--img_dirs", os.path.join(polyp, "images"),
+                              "--mask_dirs", os.path.join(polyp, "masks"), "--linear_evaluation",
+                              "--fast_dev_run"],
+    }
+    launches, numbers = {}, {}
+    try:
+        for run, flags in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            dl.reset_launch_counts()  # this path's run starts here
+            t = time.perf_counter()
+            test_metrics, args = run_finetune(finetune, common + flags, clock, reports)
+            wall = time.perf_counter() - t
+            launches[run] = dict(dl.LAUNCHES)  # read just after the run
+            peak = torch.cuda.max_memory_allocated()
+            rows = list(clock.rows)
+            run_dir = os.path.join(logs, args.run_id)
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                metric_rows = [json.loads(line) for line in f]
+            classes = args.num_classes
+            monitor = "val_BinaryJaccardIndex" if classes == 2 else "val_MulticlassJaccardIndex"
+            binary = classes == 2
+            want_test = {f"test_{k}" for k in metrics.compute_metrics(
+                metrics.ConfusionState.create(classes), binary=binary,
+                ignore_index=None if binary else 0)} | {"test_loss"}
+            epoch_rows = [r for r in metric_rows if "epoch" in r]
+            best = [d for d in os.listdir(run_dir) if d.isdigit()]
+            train_rows = [r for r in rows if r[0] == "train"]
+            problems = []
+            if not reports or not reports[0]["loaded"]:
+                problems.append("the graft loaded no tensor")
+            if not all(math.isfinite(r[-1]) for r in rows):
+                problems.append(f"losses {[r[-1] for r in rows]}")
+            if not epoch_rows or any(not math.isfinite(r.get(monitor, math.nan)) for r in epoch_rows):
+                problems.append(f"{monitor} missing from metrics.jsonl")
+            if len(best) != 1:
+                problems.append(f"{len(best)} checkpoints left: {best}")
+            if set(test_metrics) != want_test or not all(math.isfinite(v) for v in test_metrics.values()):
+                problems.append(f"test keys {sorted(test_metrics)}")
+            if any(v != 0 for v in launches[run].values()):
+                problems.append(f"dense-loss launches {launches[run]}")
+            numbers[run] = dict(
+                flags=flags, img_hw=[args.img_height, args.img_width], classes=classes,
+                batch=args.batch_size, loaded_tensors=len(reports[0]["loaded"]) if reports else 0,
+                train_step_ms=[r[1] * 1e3 for r in train_rows],
+                train_gap_ms=[r[2] * 1e3 for r in train_rows],
+                losses=[r[-1] for r in train_rows], peak_bytes=peak, run_wall_s=wall,
+                test_metrics=test_metrics, epochs=epoch_rows, launches=launches[run])
+            if run == "polyp" and not problems:
+                steps_per_epoch = FT_SPLITS["train"] // FT_BATCH
+                epoch1 = train_rows[steps_per_epoch:]
+                quiet = statistics.median(r[1] * 1e3 for r in epoch1[1:])
+                ips = FT_BATCH * (len(epoch1) - 1) / sum(r[2] for r in epoch1[1:])
+                evals = eval_seconds(rows, math.ceil(FT_SPLITS["val"] / FT_BATCH)
+                                     + FT_SPLITS["test"] // FT_BATCH)
+                layouts = time_layouts(config, (args.img_height, args.img_width))
+                numbers[run].update(quiet_step_ms_median=quiet, images_per_s_epoch1=ips,
+                                    eval_s_per_epoch=evals, layout_step_ms=layouts,
+                                    best_checkpoint=best[0])
+                log(f"  polyp: {len(train_rows)} steps over {FT_EPOCHS} epochs; epoch 1 step call "
+                    f"median {quiet:.1f} ms (steps 1-{len(epoch1) - 1}), {ips:.1f} images/s end to "
+                    f"end after step 0 (loader, copy, augmentation included); eval "
+                    f"{['%.2f' % e for e in evals]} s per epoch (val with flips + pseudo-test); "
+                    f"the step on one batch: {layouts['nchw']:.1f} ms with the explicit NCHW "
+                    f"input, {layouts['channels_last']:.1f} ms channels-last")
+            log(f"  {run:18s} {args.img_height}x{args.img_width}, {classes} classes, batch "
+                f"{args.batch_size}: loaded {numbers[run]['loaded_tensors']} tensors from "
+                f"phase 7's CP2 checkpoint; losses {['%.4f' % r[-1] for r in train_rows]}; "
+                f"{monitor} {[round(r.get(monitor, math.nan), 4) for r in epoch_rows]}; test "
+                f"{test_metrics.get('test_BinaryJaccardIndex', test_metrics.get('test_MulticlassJaccardIndex')):.4f}; "
+                f"best checkpoint {best}; peak {peak / 2**30:.2f} GiB; dense-loss launches "
+                f"{launches[run]}; run {wall:.1f} s {'ok' if not problems else 'FAIL: ' + '; '.join(problems)}")
+            if problems:
+                raise SystemExit(f"phase 11: {run}: {'; '.join(problems)}")
+            torch.cuda.empty_cache()
+    finally:
+        segmentation_task.make_seg_steps = clock.make
+        convert.load_pretrained_into_segmentor = real_load
+    shutil.rmtree(FT_WORK, ignore_errors=True)
+    shutil.rmtree(CLI_WORK, ignore_errors=True)
+    return launches, numbers
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1252,20 +1671,34 @@ def main() -> int:
     log("variant steps, card vs CPU:")
     variant_launches = variant_steps_cuda_vs_cpu(dl)
 
-    # phase 9: the CLI per variant at full width, this slice's main paths
+    # phase 9: the CLI per variant at full width
     log("pretrain CLI per variant:")
     cli9_launches, cli9 = check_cli_variants(dl)
+
+    # phase 10: the finetune path, narrow, card against CPU
+    log("finetune augmentation and step, card vs CPU:")
+    ft_aug = check_finetune_augment()
+    ft_step_launches, ft_step = check_finetune_step(dl)
+
+    # phase 11: the finetune CLI at full width, this slice's main path
+    log("finetune CLI:")
+    ft_launches, ft_cli = check_finetune_cli(dl)
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
                    "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
-                   "cli_variants": cli9}, f, indent=1)
+                   "cli_variants": cli9, "finetune_augment": ft_aug, "finetune_step": ft_step,
+                   "finetune_cli": ft_cli}, f, indent=1)
     log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")
 
     def by_path(name):
-        """Launches of one kernel on every path that runs the step."""
+        """Launches of one kernel on every path the script drives: the
+        pretrain step's paths, and the finetune paths, which run no
+        dense-loss kernel."""
         paths = {"phase5_step": step_launches[name], "phase7_cli_CP2": launches[name]}
         paths.update({f"phase8_{case}": n[name] for case, n in variant_launches.items()})
         paths.update({f"phase9_cli_{run}": n[name] for run, n in cli9_launches.items()})
+        paths["phase10_finetune_step"] = ft_step_launches[name]
+        paths.update({f"phase11_finetune_{run}": n[name] for run, n in ft_launches.items()})
         return paths
 
     kernels = [

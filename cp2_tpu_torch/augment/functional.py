@@ -1,8 +1,9 @@
-"""Batched augmentation primitives of the CP2 pretrain path, on tensors.
+"""Batched augmentation primitives of the pretrain and finetune paths.
 
-Port of the pretrain ops of ``cp2_tpu/augment/functional.py`` (lines
-24-353 and 458-486; ``grid_distortion`` waits for the finetune path).  The
-JAX ops take one image and a PRNG key and run under ``vmap``; here every op
+Port of ``cp2_tpu/augment/functional.py``: the pretrain ops (lines 24-353
+and 458-486) and the finetune geometry, image/mask flips and
+``grid_distortion`` (356-455).  The JAX ops take one image and a PRNG key
+and run under ``vmap``; here every op
 takes the whole batch, images (N, H, W, 3) float32 in [0, 1], with its
 per-image parameters as (N,) tensors, and each op is split in two:
 
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -288,7 +289,10 @@ def color_jitter(img: torch.Tensor, params: JitterParams) -> torch.Tensor:
         return torch.clamp(x * _per_image(params.brightness), 0.0, 1.0)
 
     def op_contrast(x):
-        mean = _luma(x).mean(dim=(1, 2))
+        # summed in float64: a float32 sum over the image rounds by ~1e-6
+        # in whatever order the device reduces, the card's and the CPU's
+        # differing; the float64 sum rounds once, to float32
+        mean = _luma(x).double().mean(dim=(1, 2)).float()
         return _blend(x, _per_image(mean), _per_image(params.contrast))
 
     def op_saturation(x):
@@ -406,3 +410,108 @@ def random_erase(img: torch.Tensor, params: EraseParams,
     inside = ((ys >= y0) & (ys < y0 + params.eh[:, None, None])
               & (xs >= x0) & (xs < x0 + params.ew[:, None, None]))
     return torch.where(inside[..., None], value, img)
+
+
+# ---------------------------------------------------------------------------
+# finetune geometry: flips and grid distortion of image and mask together
+# ---------------------------------------------------------------------------
+
+
+def flip_pair(img: torch.Tensor, mask: torch.Tensor, apply: torch.Tensor, dim: int):
+    """Flip image (N, H, W, C) and mask (N, H, W) along ``dim`` (1 rows, 2
+    columns) where ``apply`` (N,) is set."""
+    gate = apply.reshape(-1, 1, 1)
+    return (torch.where(gate[..., None], torch.flip(img, dims=(dim,)), img),
+            torch.where(gate, torch.flip(mask, dims=(dim,)), mask))
+
+
+class GridParams(NamedTuple):
+    """Per-image cell stretches of each axis, (N, num_steps + 1), and the gate."""
+
+    sx: torch.Tensor
+    sy: torch.Tensor
+    apply: torch.Tensor  # (N,) bool
+
+
+def sample_grid_distortion(generator: torch.Generator, n: int, num_steps: int = 5,
+                           distort_limit: float = 0.3, p: float = 0.2) -> GridParams:
+    """The law of ``functional.py:422-437``: each cell stretch is
+    ``1 + U(-distort_limit, distort_limit)``, gated with probability ``p``."""
+    dev = generator.device
+    shape = (n, num_steps + 1)
+    sx = 1.0 + _uniform(generator, shape, -distort_limit, distort_limit, dev)
+    sy = 1.0 + _uniform(generator, shape, -distort_limit, distort_limit, dev)
+    return GridParams(sx=sx, sy=sy, apply=sample_gate(generator, n, p))
+
+
+def _reflect101(coords: torch.Tensor, size: int) -> torch.Tensor:
+    """OpenCV BORDER_REFLECT_101 folding: ...2 1 | 0 1 2 | 1 0..."""
+    if size == 1:
+        return torch.zeros_like(coords)
+    period = 2.0 * (size - 1)
+    c = torch.remainder(coords.abs(), period)
+    return torch.where(c > size - 1, period - c, c)
+
+
+def _grid_axis_coords(steps: torch.Tensor, size: int, num_steps: int) -> torch.Tensor:
+    """(N, size) distorted source coordinates along one axis
+    (``functional.py:365-388``): the axis is cut into ``num_steps`` cells of
+    ``size // num_steps`` pixels, cell i stretched by ``steps[:, i]``; the
+    remainder cell ends exactly at ``size``."""
+    dev = steps.device
+    step = size // num_steps
+    start = torch.arange(num_steps + 1, device=dev) * step
+    full = start + step <= size
+    widths = torch.where(full, step * steps, 0.0)
+    # a running sum in a fixed order: the card's parallel cumsum rounds
+    # otherwise than the CPU's, and a coordinate 1 ulp off moves the
+    # bilinear weights by ~3e-5 at 352 pixels
+    sums = [torch.zeros_like(widths[:, 0])]
+    for i in range(num_steps):
+        sums.append(sums[-1] + widths[:, i])
+    prev = torch.stack(sums, 1)
+    cur = torch.where(full, prev + step * steps, float(size))
+    n = torch.clamp(torch.clamp(start + step, max=size) - start, min=1)
+    x = torch.arange(size, device=dev)
+    idx = torch.clamp(x // step, max=num_steps)
+    t = (x - start[idx]) / torch.clamp(n[idx] - 1, min=1)
+    return prev[:, idx] + (cur[:, idx] - prev[:, idx]) * t
+
+
+def _axis_resample_matrix(coords: torch.Tensor, size: int) -> torch.Tensor:
+    """(N, out, src) bilinear weights of 1-D coordinates folded by
+    BORDER_REFLECT_101 (``functional.py:391-400``)."""
+    c = _reflect101(coords, size)
+    f = torch.floor(c)
+    t = (c - f)[..., None]
+    i0 = f.to(torch.int32).clamp(0, size - 1)[..., None]
+    i1 = (i0 + 1).clamp(0, size - 1)
+    cols = torch.arange(size, device=coords.device)
+    return (cols == i0) * (1.0 - t) + (cols == i1) * t
+
+
+def grid_distortion(img: torch.Tensor, mask: Optional[torch.Tensor], params: GridParams,
+                    num_steps: int = 5):
+    """Albumentations GridDistortion (``functional.py:403-455``): the image
+    (N, H, W, C) float32 resampled bilinearly as two batched products, the
+    mask (N, H, W) by nearest through the same coordinates, each where the
+    gate is set.
+
+    The JAX op warps the mask as two one-hot products and rounds; a gather
+    at ``round(reflect101(coordinate))`` picks the same ids.
+    """
+    h, w = img.shape[1], img.shape[2]
+    xx = _grid_axis_coords(params.sx, w, num_steps)
+    yy = _grid_axis_coords(params.sy, h, num_steps)
+    wx = _axis_resample_matrix(xx, w).to(img.dtype)
+    wy = _axis_resample_matrix(yy, h).to(img.dtype)
+    tmp = torch.einsum("nxk,nykc->nyxc", wx, img)
+    warped = torch.einsum("nyj,njxc->nyxc", wy, tmp)
+    out_img = torch.where(_per_image(params.apply), warped, img)
+    if mask is None:
+        return out_img
+    iy = torch.round(_reflect101(yy, h)).to(torch.int32).clamp(0, h - 1).long()
+    ix = torch.round(_reflect101(xx, w)).to(torch.int32).clamp(0, w - 1).long()
+    rows = torch.arange(mask.shape[0], device=mask.device)[:, None, None]
+    warped_mask = mask[rows, iy[:, :, None], ix[:, None, :]]
+    return out_img, torch.where(params.apply.reshape(-1, 1, 1), warped_mask, mask)

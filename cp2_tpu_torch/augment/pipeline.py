@@ -1,17 +1,18 @@
-"""The CP2 pretrain augmentation: two crops of the foreground, two erased
-backgrounds, batched on the device.
+"""The on-device augmentation pipelines, batched.
 
-Port of ``AugmentConfig``, ``two_crop_augment_batch``,
-``background_augment_batch`` and ``pretrain_batch_augment`` of
-``cp2_tpu/augment/pipeline.py`` (lines 29-149, 282-296); the finetune and
-eval pipelines wait for the finetune path.  Raw uint8 frames are the only
-input: crops, photometric ops, id maps and the erase all run where the
-frames are.
+Port of ``cp2_tpu/augment/pipeline.py``: the CP2 pretrain pipeline (two
+crops of the foreground, two erased backgrounds; ``AugmentConfig``,
+``two_crop_augment_batch``, ``background_augment_batch``,
+``pretrain_batch_augment``, lines 29-149 and 282-296) and the finetune and
+eval pipelines, which co-augment images and masks
+(``FinetuneAugmentConfig``, ``lemon_augment_config``,
+``finetune_augment_batch``, ``eval_augment_batch``, lines 152-279).  Raw
+uint8 frames are the only input: everything runs where the frames are.
 
-Sampling and applying are split (see ``functional``):
-``sample_pretrain_params`` draws every parameter of a batch from one
-``torch.Generator``, and ``apply_pretrain_augment`` is deterministic given
-them; ``pretrain_batch_augment`` is the two in turn.
+Sampling and applying are split (see ``functional``): ``sample_*_params``
+draws every parameter of a batch from one ``torch.Generator``, and
+``apply_*_augment`` is deterministic given them; ``*_batch_augment`` /
+``*_augment_batch`` is the two in turn.
 """
 
 from __future__ import annotations
@@ -165,3 +166,168 @@ def pretrain_batch_augment(generator: torch.Generator, raw: Dict[str, torch.Tens
                          f"bg0 {tuple(raw['bg0'].shape)}, bg1 {tuple(raw['bg1'].shape)}")
     params = sample_pretrain_params(generator, fg.shape[0], tuple(fg.shape[1:3]), cfg)
     return apply_pretrain_augment(raw, params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# finetune and eval: image and mask co-augmented (``pipeline.py:152-279``)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FinetuneAugmentConfig:
+    """Polyp finetune train-time augmentation (reference
+    finetune_dataset.py:301-337).  The host already did SmallestMaxSize and
+    the crop; the card does the flips (image and mask), colour jitter, grid
+    distortion (image bilinear, mask nearest through one warp) and Gaussian
+    noise."""
+
+    hflip_p: float = 0.5
+    vflip_p: float = 0.5
+    jitter_p: float = 0.75
+    brightness: Tuple[float, float] = (0.65, 1.35)
+    contrast: Tuple[float, float] = (0.5, 1.5)
+    saturation: Tuple[float, float] = (0.0, 1.0)
+    hue: Tuple[float, float] = (-0.1, 0.1)
+    noise_p: float = 0.5
+    noise_var: Tuple[float, float] = (10.0, 50.0)  # on the 0..255 scale
+    distort_p: float = 0.2
+    distort_limit: float = 0.3
+    jitter_random_order: bool = False  # see AugmentConfig
+    # A.RandomBrightnessContrast (lemon only): img·alpha + beta with
+    # alpha = 1 + U(bc_contrast), beta = U(bc_brightness)
+    bc_p: float = 0.0
+    bc_brightness: Tuple[float, float] = (0.0, 0.5)
+    bc_contrast: Tuple[float, float] = (0.0, 0.5)
+
+
+def lemon_augment_config() -> FinetuneAugmentConfig:
+    """Lemon-defect train stack (reference finetune_dataset.py:349-367):
+    flips, grid distortion p 0.2, brightness/contrast p 0.5, Gaussian
+    noise; no colour jitter."""
+    return FinetuneAugmentConfig(jitter_p=0.0, bc_p=0.5)
+
+
+class BrightContrastParams(NamedTuple):
+    alpha: torch.Tensor  # (N,)
+    beta: torch.Tensor
+    apply: torch.Tensor  # (N,) bool
+
+
+class NoiseParams(NamedTuple):
+    var: torch.Tensor  # (N,) on the 0..255 scale
+    normal: torch.Tensor  # (N, H, W, C) standard normal draws
+    apply: torch.Tensor  # (N,) bool
+
+
+class FinetuneAugParams(NamedTuple):
+    """Everything one finetune batch is drawn with; an op the config turns
+    off has ``None``."""
+
+    hflip: torch.Tensor  # (N,) bool
+    vflip: torch.Tensor
+    jitter: Optional[F.JitterParams]
+    bc: Optional[BrightContrastParams]
+    distort: Optional[F.GridParams]
+    noise: NoiseParams
+
+
+def sample_finetune_params(generator: torch.Generator, n: int, hw: Tuple[int, int],
+                           cfg: FinetuneAugmentConfig, channels: int = 3) -> FinetuneAugParams:
+    """Draw the parameters of one finetune batch of ``n`` images of ``hw``
+    on ``generator``'s device, by the laws of ``pipeline.py:203-239``."""
+    dev = generator.device
+    order = 0
+    if cfg.jitter_random_order:
+        order = int(torch.randint(0, len(F.JITTER_ORDERS), (1,), generator=torch.Generator()
+                                  .manual_seed(generator.initial_seed())))
+    hflip = F.sample_gate(generator, n, cfg.hflip_p)
+    vflip = F.sample_gate(generator, n, cfg.vflip_p)
+    jitter = (F.sample_color_jitter(generator, n, cfg.brightness, cfg.contrast,
+                                    cfg.saturation, cfg.hue, cfg.jitter_p, order)
+              if cfg.jitter_p > 0 else None)
+    bc = None
+    if cfg.bc_p > 0:
+        bc = BrightContrastParams(
+            alpha=1.0 + F._uniform(generator, (n,), *cfg.bc_contrast, dev),
+            beta=F._uniform(generator, (n,), *cfg.bc_brightness, dev),
+            apply=F.sample_gate(generator, n, cfg.bc_p))
+    distort = (F.sample_grid_distortion(generator, n, distort_limit=cfg.distort_limit,
+                                        p=cfg.distort_p)
+               if cfg.distort_p > 0 else None)
+    noise = NoiseParams(
+        var=F._uniform(generator, (n,), *cfg.noise_var, dev),
+        normal=torch.randn((n, *hw, channels), generator=generator, device=dev),
+        apply=F.sample_gate(generator, n, cfg.noise_p))
+    return FinetuneAugParams(hflip, vflip, jitter, bc, distort, noise)
+
+
+def apply_finetune_augment(images: torch.Tensor, masks: torch.Tensor,
+                           params: FinetuneAugParams):
+    """Co-augment an image batch (N, H, W, 3), uint8 or float in [0, 1], and
+    its masks (N, H, W): flips, jitter, brightness/contrast, grid
+    distortion, noise, in the JAX order.  Returns float32 images in
+    [0, 1] and the masks."""
+    img = _to_float(images)
+    img, mask = F.flip_pair(img, masks, params.hflip, dim=2)
+    img, mask = F.flip_pair(img, mask, params.vflip, dim=1)
+    if params.jitter is not None:
+        img = F.color_jitter(img, params.jitter)
+    if params.bc is not None:
+        bc = params.bc
+        moved = torch.clamp(img * F._per_image(bc.alpha) + F._per_image(bc.beta), 0.0, 1.0)
+        img = torch.where(F._per_image(bc.apply), moved, img)
+    if params.distort is not None:
+        img, mask = F.grid_distortion(img, mask, params.distort)
+    noise = params.noise
+    noisy = torch.clamp(img + noise.normal * F._per_image(torch.sqrt(noise.var)) / 255.0,
+                        0.0, 1.0)
+    img = torch.where(F._per_image(noise.apply), noisy, img)
+    return img, mask
+
+
+def finetune_augment_batch(generator: torch.Generator, images: torch.Tensor,
+                           masks: torch.Tensor, cfg: FinetuneAugmentConfig):
+    """Sample on ``generator`` and apply: the finetune train batch."""
+    params = sample_finetune_params(generator, images.shape[0], tuple(images.shape[1:3]),
+                                    cfg, images.shape[3])
+    return apply_finetune_augment(images, masks, params)
+
+
+class EvalAugParams(NamedTuple):
+    """Val-time flips and grid distortion; ``None`` where the op is off."""
+
+    hflip: Optional[torch.Tensor]
+    vflip: Optional[torch.Tensor]
+    distort: Optional[F.GridParams]
+
+
+def sample_eval_params(generator: torch.Generator, n: int, *, hflip_p: float = 0.5,
+                       vflip_p: float = 0.5, distort_p: float = 0.0,
+                       distort_limit: float = 0.3) -> EvalAugParams:
+    return EvalAugParams(
+        hflip=F.sample_gate(generator, n, hflip_p) if hflip_p > 0 else None,
+        vflip=F.sample_gate(generator, n, vflip_p) if vflip_p > 0 else None,
+        distort=(F.sample_grid_distortion(generator, n, distort_limit=distort_limit,
+                                          p=distort_p) if distort_p > 0 else None))
+
+
+def apply_eval_augment(images: torch.Tensor, masks: torch.Tensor, params: EvalAugParams):
+    """The reference's stochastic val transforms (``pipeline.py:244-279``):
+    polyp flips H and V, lemon flips H and distorts; float images in [0, 1]."""
+    img, mask = images, masks
+    if params.hflip is not None:
+        img, mask = F.flip_pair(img, mask, params.hflip, dim=2)
+    if params.vflip is not None:
+        img, mask = F.flip_pair(img, mask, params.vflip, dim=1)
+    if params.distort is not None:
+        img, mask = F.grid_distortion(img, mask, params.distort)
+    return img, mask
+
+
+def eval_augment_batch(generator: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
+                       *, hflip_p: float = 0.5, vflip_p: float = 0.5, distort_p: float = 0.0,
+                       distort_limit: float = 0.3):
+    """Sample on ``generator`` and apply: the val batch."""
+    params = sample_eval_params(generator, images.shape[0], hflip_p=hflip_p, vflip_p=vflip_p,
+                                distort_p=distort_p, distort_limit=distort_limit)
+    return apply_eval_augment(images, masks, params)

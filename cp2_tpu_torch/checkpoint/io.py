@@ -1,11 +1,13 @@
-"""Checkpoint persistence of the pretrain state, with ``torch.save``.
+"""Checkpoint persistence of the train states, with ``torch.save``.
 
 Port of ``cp2_tpu/checkpoint/io.py`` (orbax there), same layout and
 semantics: ``<dir>/<step>/`` holds the state file ``state.pt`` and a
 ``meta.json`` carrying the tags the reference embeds (``pretrain_type``,
-``backbone_type``, ``epoch``), and ``<dir>/latest`` names the newest step.
-The state is the query model, the EMA model, the optimizer, both queues
-with their pointers, and the step.
+``backbone_type``, ``epoch``, the finetune's monitored metric), and
+``<dir>/latest`` names the newest step.  A pretrain state is saved as the
+query model, the EMA model, the optimizer, both queues with their
+pointers, and the step; a finetune ``SegTrainState`` as the model, the
+optimizer and the step.
 
 The state file is written to a temporary name and renamed, so an
 interrupted save never appears at the final path.  With ``async_save``
@@ -41,8 +43,19 @@ def _to_cpu(obj):
     return obj
 
 
+def _is_pretrain(state) -> bool:
+    return hasattr(state, "ema_model")
+
+
 def state_payload(state) -> Dict[str, Any]:
-    """The saved fields of a ``PretrainState``, on the CPU."""
+    """The saved fields of a ``PretrainState`` or a ``SegTrainState``, on
+    the CPU."""
+    if not _is_pretrain(state):
+        return _to_cpu({
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+        })
     return _to_cpu({
         "model": state.model.state_dict(),
         "ema_model": state.ema_model.state_dict(),
@@ -175,18 +188,19 @@ def restore_checkpoint(path: str, state) -> Tuple[Any, Dict[str, Any]]:
     """Load a checkpoint into ``state`` (on the state's device); returns
     ``(state, meta)``."""
     path = os.path.abspath(os.path.expanduser(path))
-    device = state.queue.device
+    device = next(state.model.parameters()).device
     payload = torch.load(os.path.join(path, STATE_NAME), map_location=device,
                          weights_only=True)
     state.model.load_state_dict(payload["model"])
-    state.ema_model.load_state_dict(payload["ema_model"])
     state.optimizer.load_state_dict(payload["optimizer"])
-    with torch.no_grad():
-        state.queue.copy_(payload["queue"])
-        state.queue2.copy_(payload["queue2"])
-    state.queue_ptr = int(payload["queue_ptr"])
-    state.queue2_ptr = int(payload["queue2_ptr"])
     state.step = int(payload["step"])
+    if _is_pretrain(state):
+        state.ema_model.load_state_dict(payload["ema_model"])
+        with torch.no_grad():
+            state.queue.copy_(payload["queue"])
+            state.queue2.copy_(payload["queue2"])
+        state.queue_ptr = int(payload["queue_ptr"])
+        state.queue2_ptr = int(payload["queue2_ptr"])
     meta: Dict[str, Any] = {}
     meta_path = os.path.join(path, META_NAME)
     if os.path.exists(meta_path):

@@ -1,9 +1,10 @@
 """Host-side prefetching loader feeding raw frames to the device pipeline.
 
-A copy of ``PretrainDataSource`` and ``HostDataLoader`` of
-``cp2_tpu/data/host_loader.py`` (the segmentation source waits for the
-finetune path): the host only decodes frames and resizes them to a fixed
-base size (uint8); crops, photometric ops and id maps run on the device
+A copy of ``PretrainDataSource``, ``SegmentationDataSource`` and
+``HostDataLoader`` of ``cp2_tpu/data/host_loader.py``: the host only
+decodes frames and brings them to a fixed size (uint8); crops, photometric
+ops and id maps of the pretrain path, and the finetune path's flips,
+jitter, distortion and noise, run on the device
 (``cp2_tpu_torch.augment``).  Decoding uses PIL, imported when the first
 frame is read.
 
@@ -65,6 +66,95 @@ class PretrainDataSource:
         if self.with_region_maps:
             out["region_map"] = _decode_mask(region_mask_path(path), self.base_hw)
         return out
+
+
+class SegmentationDataSource:
+    """(image, mask) pairs; the host does the geometric normalisation.
+
+    ``mode="crop"`` (polyp): aspect-preserving SmallestMaxSize then a shared
+    crop — ``random_crop=True`` reproduces SmallestMaxSize + RandomCrop
+    (train/val transforms, reference finetune_dataset.py:301-337); ``False``
+    the deterministic centre crop of test (:338-349).  ``mode="resize"``
+    (lemon): a direct, aspect-breaking resize to ``image_size``, the
+    reference's ``A.Resize(544, 1024)`` (:349-384).  Masks are binarised
+    when ``num_classes == 2`` (reference :113-116).
+    """
+
+    def __init__(
+        self,
+        pairs: Sequence[Tuple[str, str]],
+        image_size,
+        num_classes: int = 2,
+        random_crop: bool = True,
+        seed: int = 0,
+        mode: str = "crop",
+    ):
+        self.pairs = list(pairs)
+        if isinstance(image_size, int):
+            image_size = (image_size, image_size)
+        self.image_hw = tuple(image_size)
+        self.num_classes = num_classes
+        self.random_crop = random_crop
+        if mode not in ("crop", "resize"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode == "crop" and self.image_hw[0] != self.image_hw[1]:
+            raise ValueError("crop mode requires a square target")
+        self.mode = mode
+        self._rng = np.random.RandomState(seed)
+        self._rng_lock = threading.Lock()
+
+    @property
+    def image_size(self) -> int:
+        return self.image_hw[0]
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    def _smallest_max_size(self, img, resample):
+        s = self.image_size
+        scale = s / min(img.width, img.height)
+        return img.resize(
+            (max(s, round(img.width * scale)), max(s, round(img.height * scale))),
+            resample,
+        )
+
+    def load(self, index: int, rng=None) -> Dict[str, np.ndarray]:
+        from PIL import Image
+
+        img_path, mask_path = self.pairs[index]
+        with open(img_path, "rb") as f:
+            img = Image.open(f).convert("RGB")
+        with open(mask_path, "rb") as f:
+            mask = Image.open(f).convert("L")
+        if self.mode == "resize":
+            h, w = self.image_hw
+            # the reference resizes both nearest; bilinear on the image, as
+            # in crop mode below
+            img = np.asarray(img.resize((w, h), Image.BILINEAR), np.uint8)
+            mask = np.asarray(mask.resize((w, h), Image.NEAREST), np.int32)
+            if self.num_classes == 2:
+                mask = (mask > 0).astype(np.int32)
+            return {"image": img, "mask": mask}
+        img = self._smallest_max_size(img, Image.BILINEAR)
+        mask = self._smallest_max_size(mask, Image.NEAREST)
+        s = self.image_size
+        if self.random_crop:
+            if rng is None:
+                # shared-state fallback: serialise draws across decode threads
+                with self._rng_lock:
+                    y0 = self._rng.randint(0, img.height - s + 1)
+                    x0 = self._rng.randint(0, img.width - s + 1)
+            else:
+                y0 = rng.randint(0, img.height - s + 1)
+                x0 = rng.randint(0, img.width - s + 1)
+        else:
+            y0 = (img.height - s) // 2
+            x0 = (img.width - s) // 2
+        img = np.asarray(img, np.uint8)[y0:y0 + s, x0:x0 + s]
+        mask = np.asarray(mask, np.int32)[y0:y0 + s, x0:x0 + s]
+        if self.num_classes == 2:
+            mask = (mask > 0).astype(np.int32)
+        return {"image": img, "mask": mask}
 
 
 class HostDataLoader:

@@ -1,9 +1,11 @@
-"""EncoderDecoder segmentor: backbone + decode head combinator.
+"""EncoderDecoder segmentor: backbone + decode head (+ auxiliary head).
 
 Port of ``cp2_tpu/models/encoder_decoder.py``: one forward returning the
 head output at feature resolution — segmentation logits when the head
-classifies, dense embeddings when ``contrast=True``.  Necks and auxiliary
-heads are not ported yet.
+classifies, dense embeddings when ``contrast=True`` — and, with
+``with_aux``, the auxiliary head's logits beside it (mmseg's
+``_auxiliary_head_forward_train``).  Train-mode dropout draws its masks
+from the ``generator`` passed in.  Necks are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ class EncoderDecoder(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         del train_cfg, test_cfg
-        if neck is not None or auxiliary_head is not None:
-            raise NotImplementedError("necks and auxiliary heads are not ported yet")
+        if neck is not None:
+            raise NotImplementedError("necks on a segmentor are not ported yet")
         bb = dict(backbone)
         bb.setdefault("dtype", dtype)
         bb.pop("init_cfg", None)  # checkpoints load through the bridge
@@ -35,11 +37,22 @@ class EncoderDecoder(nn.Module):
         head = dict(decode_head)
         head.setdefault("dtype", dtype)
         self.decode_head = HEADS.build(head)
+        self.auxiliary_head = None
+        if auxiliary_head is not None:
+            aux = dict(auxiliary_head)
+            aux.setdefault("dtype", dtype)
+            self.auxiliary_head = HEADS.build(aux)
 
     def extract_feat(self, img: torch.Tensor):
         """Backbone stage features (tuple), NCHW."""
         return self.backbone(img)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
-        """Head output at feature resolution (OS=8/16/32 depending on config)."""
-        return self.decode_head(self.extract_feat(img))
+    def forward(self, img: torch.Tensor, with_aux: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Head output at feature resolution (OS=8/16/32 depending on config);
+        ``(out, aux_out)`` with ``with_aux`` when there is an auxiliary head."""
+        feats = self.extract_feat(img)
+        out = self.decode_head(feats, generator=generator)
+        if with_aux and self.auxiliary_head is not None:
+            return out, self.auxiliary_head(feats, generator=generator)
+        return out

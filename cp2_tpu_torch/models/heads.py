@@ -12,8 +12,11 @@ Port of ``cp2_tpu/models/heads.py``:
   the identity the MoCo config uses (``configs/config_moco.py``), then
   ``conv_seg``.
 
-The contrast heads return before the dropout, so the pretrain step draws
-no random numbers.
+Dropout draws its mask from an explicit ``torch.Generator``, as flax draws
+from the ``dropout`` rng stream: in train mode each kept activation is
+scaled by 1/keep, each dropped one set to 0 (``heads.py:82-83,134-135``);
+in eval mode, or at ratio 0, it is the identity.  The contrast heads
+return before the dropout, so the pretrain step draws no random numbers.
 """
 
 from __future__ import annotations
@@ -31,6 +34,19 @@ def _select_input(inputs, in_index):
     if isinstance(inputs, (tuple, list)):
         return inputs[in_index]
     return inputs
+
+
+def dropout(y: torch.Tensor, ratio: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(keep, y / keep_prob, 0)`` with the keep
+    mask drawn on ``generator`` (on ``y``'s device) in train mode."""
+    if not training or ratio <= 0:
+        return y
+    if generator is None:
+        raise ValueError("train-mode dropout needs a generator")
+    keep_prob = 1.0 - ratio
+    keep = torch.rand(y.shape, generator=generator, device=y.device) < keep_prob
+    return torch.where(keep, y / keep_prob, torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 @HEADS.register
@@ -59,10 +75,10 @@ class ASPPHead(nn.Module):
         if contrast:
             self.contrast_conv = ConvMLP(channels, channels, contrast_dim, dtype=dtype)
         else:
-            self.dropout = nn.Dropout(dropout_ratio)
+            self.dropout_ratio = dropout_ratio
             self.conv_seg = nn.Conv2d(channels, num_classes, 1)
 
-    def forward(self, inputs) -> torch.Tensor:
+    def forward(self, inputs, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = _select_input(inputs, self.in_index).to(self.dtype)
         n, _, h, w = x.shape
         # image-level pooled branch; bilinear resize of a 1x1 map == broadcast
@@ -73,7 +89,8 @@ class ASPPHead(nn.Module):
         y = self.bottleneck(torch.cat(branches, dim=1))
         if self.contrast:
             return self.contrast_conv(y)
-        return conv2d(self.conv_seg, self.dropout(y), self.dtype)
+        y = dropout(y, self.dropout_ratio, self.training, generator)
+        return conv2d(self.conv_seg, y, self.dtype)
 
 
 @HEADS.register
@@ -105,10 +122,10 @@ class FCNHead(nn.Module):
         if contrast:
             self.contrast_conv = ConvMLP(channels, channels, contrast_dim, dtype=dtype)
         else:
-            self.dropout = nn.Dropout(dropout_ratio if num_convs > 0 else 0.0)
+            self.dropout_ratio = dropout_ratio if num_convs > 0 else 0.0
             self.conv_seg = nn.Conv2d(channels, num_classes, 1)
 
-    def forward(self, inputs) -> torch.Tensor:
+    def forward(self, inputs, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = _select_input(inputs, self.in_index).to(self.dtype)
         y = x
         for i in range(self.num_convs):
@@ -117,4 +134,5 @@ class FCNHead(nn.Module):
             y = self.conv_cat(torch.cat([x, y], dim=1))
         if self.contrast:
             return self.contrast_conv(y)
-        return conv2d(self.conv_seg, self.dropout(y), self.dtype)
+        y = dropout(y, self.dropout_ratio, self.training, generator)
+        return conv2d(self.conv_seg, y, self.dtype)

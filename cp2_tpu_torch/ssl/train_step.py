@@ -95,13 +95,17 @@ def epoch_vector(pt: PretrainType, metrics: Dict[str, torch.Tensor]) -> torch.Te
 
 
 _SEED_MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: (seed, step) -> one seed
+_STREAM_MIX = 0xD1B54A32D192ED03  # another, to keep the streams of one step apart
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from (base seed, step): every step
-    draws from its own stream, and the same step draws the same values."""
+def step_generator(seed: int, step: int, device, stream: int = 0) -> torch.Generator:
+    """A generator on ``device`` seeded from (base seed, step, stream): every
+    step draws from its own stream, and the same step draws the same values.
+    ``stream`` separates the draws of one step that must not share values
+    (the finetune step's augmentation and dropout)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((int(seed) * _SEED_MIX + int(step)) % (1 << 63))
+    gen.manual_seed((int(seed) * _SEED_MIX + int(step) + int(stream) * _STREAM_MIX)
+                    % (1 << 63))
     return gen
 
 

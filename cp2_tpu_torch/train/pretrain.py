@@ -14,9 +14,9 @@ Run: ``python -m cp2_tpu_torch.train.pretrain --run_id r0 --log_dir
 /tmp/logs --data_dirs <dir> [--pretrain_type CP2] ...``
 
 It runs on the card; ``main(args, device="cpu")`` runs it on the CPU, as
-the tests do.  Ported so far: every pretrain type on one process;
-``--imagenet_checkpoint`` and more than one process raise
-``NotImplementedError``.
+the tests do.  Ported so far: every pretrain type on one process, with
+``--imagenet_checkpoint`` (a torchvision-layout ResNet grafted into both
+encoders); more than one process raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -152,8 +152,7 @@ def get_args(argv=None):
                              'background thread (overlaps the host-to-device '
                              'copy of batch i+1 with step i); 0 copies inline')
     parser.add_argument('--imagenet_checkpoint', default='', type=str,
-                        help='local torchvision resnet50 checkpoint for ImageNet '
-                             'init (not ported yet: raises)')
+                        help='local torchvision resnet50 checkpoint for ImageNet init')
     parser.add_argument('--bf16', action='store_true', default=True)
     parser.add_argument('--no-bf16', dest='bf16', action='store_false')
     parser.add_argument('--native_loader', action='store_true', default=True,
@@ -218,9 +217,6 @@ def hparams_from_args(args, dataset_size: int):
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if args.imagenet_checkpoint and not args.pretrain_from_scratch:
-        raise NotImplementedError(
-            "--imagenet_checkpoint: the torchvision graft is not ported yet")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("more than one process is not ported yet")
 
@@ -377,6 +373,8 @@ def main(args, device="cuda"):
     step_fn_visual = make_step(2) if visuals_on else step_fn_metrics
 
     state = create_pretrain_state(model, tx, hp, seed=args.seed, device=device)
+    if args.imagenet_checkpoint and not args.pretrain_from_scratch:
+        load_imagenet_backbone(state, args.imagenet_checkpoint, logger)
 
     start_epoch = args.start_epoch
     if args.resume:
@@ -504,6 +502,20 @@ def main(args, device="cuda"):
     wait_for_checkpoints()
     metrics_sink.close()
     return state
+
+
+def load_imagenet_backbone(state, checkpoint_path: str, logger=None) -> None:
+    """Graft a torchvision-layout ResNet checkpoint into the query encoder's
+    backbone and copy the query encoder, BatchNorm statistics included, into
+    the EMA key encoder (``cp2_tpu/train/pretrain.py:683-718``)."""
+    from cp2_tpu_torch.checkpoint.convert import graft_imagenet_backbone, read_torch_checkpoint
+
+    state_dict, _ = read_torch_checkpoint(checkpoint_path)
+    report = graft_imagenet_backbone(state.model, state_dict)
+    state.ema_model.load_state_dict(state.model.state_dict())
+    if logger is not None:
+        logger.info(f"imagenet init: {len(report['loaded'])} tensors loaded, "
+                    f"{len(report['missing_in_source'])} missing")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
-"""Training visualizations of the pretrain CLI: IoU histograms,
-dense-similarity heatmaps, example grids.
+"""Training visualizations of the CLIs: IoU histograms, dense-similarity
+heatmaps, example grids, segmentation overlays.
 
-A copy of ``iou_histogram``, ``dense_similarity_heatmaps`` and
-``example_grid`` of ``cp2_tpu/utils/visualize.py``, the three the pretrain
-CLI renders; the correlation-map panels and segmentation overlays wait
-for the tools and the finetune path.
+A copy of ``iou_histogram``, ``dense_similarity_heatmaps``,
+``example_grid`` (the pretrain CLI's) and ``segmentation_overlay_grid``
+(the finetune CLI's ``--visualize_freq``) of
+``cp2_tpu/utils/visualize.py``; the correlation-map panels wait for the
+tools.
 
 Parity with the reference's image artifacts: epoch-end IoU histograms and
 viridis similarity heatmaps (builder.py:1450-1549).  All functions write
@@ -107,5 +108,31 @@ def example_grid(named_batches, save_path: str):
     fig.tight_layout()
     os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
     fig.savefig(save_path, dpi=100)
+    plt.close(fig)
+    return save_path
+
+
+def segmentation_overlay_grid(
+    images: np.ndarray,   # (N, H, W, 3) in [0,1]
+    masks: np.ndarray,    # (N, H, W) int
+    preds: np.ndarray,    # (N, H, W) int
+    save_path: str,
+):
+    """Image / ground-truth / prediction triptychs (finetune callback parity)."""
+    plt = _plt()
+    n = images.shape[0]
+    fig, axes = plt.subplots(n, 3, figsize=(6, 2 * n), squeeze=False)
+    for i in range(n):
+        axes[i, 0].imshow(np.clip(images[i], 0, 1))
+        axes[i, 0].set_title("image", fontsize=6)
+        axes[i, 1].imshow(masks[i], cmap="tab10", vmin=0, vmax=9)
+        axes[i, 1].set_title("mask", fontsize=6)
+        axes[i, 2].imshow(preds[i], cmap="tab10", vmin=0, vmax=9)
+        axes[i, 2].set_title("pred", fontsize=6)
+        for j in range(3):
+            axes[i, j].axis("off")
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+    fig.savefig(save_path, dpi=120)
     plt.close(fig)
     return save_path

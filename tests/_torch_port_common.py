@@ -255,6 +255,54 @@ def assert_trees_close(ours, ref, tol: float, path: str = "") -> None:
 # replay makes the comparison it feeds fail.
 
 
+def torchvision_name(key: str) -> str:
+    """The port's ResNet key → torchvision's (``conv1.conv.weight`` →
+    ``conv1.weight``, ``layer1_0.conv2.norm.bias`` → ``layer1.0.bn2.bias``,
+    ``layer2_0.downsample.conv.weight`` → ``layer2.0.downsample.0.weight``)."""
+    parts = key.split(".")
+    if parts[0] == "conv1":
+        return "conv1.weight" if parts[1] == "conv" else f"bn1.{parts[-1]}"
+    stage, block = parts[0][len("layer"):].split("_")
+    head = f"layer{stage}.{block}"
+    if parts[1] == "downsample":
+        return f"{head}.downsample.{0 if parts[2] == 'conv' else 1}.{parts[-1]}"
+    if parts[1] == "norm3":
+        return f"{head}.bn3.{parts[-1]}"
+    if parts[1] == "conv3":
+        return f"{head}.conv3.{parts[-1]}"
+    return f"{head}.{parts[1] if parts[2] == 'conv' else 'bn' + parts[1][-1]}.{parts[-1]}"
+
+
+# ---------------------------------------------------------------------------
+# the finetune segmentor at narrow widths
+# ---------------------------------------------------------------------------
+
+# config_finetune.py's structure (dilated ResNet-50, OS 16, the ASPP
+# classifier) at widths 8/16, with an FCN auxiliary head on stage 3
+SEG_MODEL = dict(
+    type="EncoderDecoder",
+    backbone=dict(type="ResNet", depth=50, stem_channels=8, base_channels=8, num_stages=4,
+                  out_indices=(0, 1, 2, 3), dilations=(1, 1, 1, 2), strides=(1, 2, 2, 1),
+                  norm_cfg=dict(type="BN"), contract_dilation=True),
+    decode_head=dict(type="ASPPHead", in_channels=256, in_index=3, channels=16,
+                     dilations=(1, 6, 12, 18), dropout_ratio=0.0, num_classes=2,
+                     norm_cfg=dict(type="BN")),
+    auxiliary_head=dict(type="FCNHead", in_channels=128, in_index=2, channels=8, num_convs=1,
+                        concat_input=False, dropout_ratio=0.0, num_classes=2,
+                        norm_cfg=dict(type="BN")),
+)
+
+# config_finetune_moco.py's structure (plain-stride, OS 32) on the MOCO
+# encoder's ResNet-18 at width 8
+SEG_MOCO_MODEL = dict(
+    type="EncoderDecoder",
+    backbone=dict(MOCO_MODEL["backbone"]),
+    decode_head=dict(type="ASPPHead", in_channels=64, in_index=3, channels=16,
+                     dilations=(1, 6, 12, 18), dropout_ratio=0.1, num_classes=2,
+                     norm_cfg=dict(type="BN")),
+)
+
+
 def _tensor(x, dtype=None):
     import torch
 
@@ -388,3 +436,67 @@ def replay_jax_pretrain_params(rng, n: int, src_hw, cfg):
         bgs.append(_replay_view(k[:, 0], k[:, 1], src_hw, cfg, orders(k_order, ())[0]))
         erases.append(replay_erase(k[:, 2], cfg.out_hw, cfg.erase_scale, cfg.erase_ratio))
     return PretrainAugParams(views[0], views[1], bgs[0], bgs[1], erases[0], erases[1])
+
+
+def replay_grid(keys, num_steps: int, distort_limit: float, p: float):
+    """The stretches and gate ``grid_distortion(key, ...)`` draws
+    (``cp2_tpu/augment/functional.py:422-437``)."""
+    import jax
+
+    from cp2_tpu_torch.augment import functional as F
+
+    k = jax_split(keys, 3)
+
+    def stretches(kk):
+        return jax.vmap(lambda key: 1.0 + jax.random.uniform(
+            key, (num_steps + 1,), minval=-distort_limit, maxval=distort_limit))(kk)
+
+    return F.GridParams(sx=_tensor(stretches(k[:, 0])), sy=_tensor(stretches(k[:, 1])),
+                        apply=_tensor(_bernoulli(k[:, 2], p)))
+
+
+def replay_jax_finetune_params(rng, n: int, hw, cfg, channels: int = 3):
+    """The port's ``FinetuneAugParams`` holding the draws of the JAX
+    package's ``finetune_augment_batch(rng, images, masks, cfg)`` on ``n``
+    images of ``hw`` (``cp2_tpu/augment/pipeline.py:195-239``); ``cfg`` is
+    the port's ``FinetuneAugmentConfig``, whose fields are the JAX one's."""
+    import jax
+
+    from cp2_tpu_torch.augment import pipeline as P
+
+    k_order, k = jax.random.split(rng)
+    order = int(jax.random.randint(k_order, (), 0, 24)) if cfg.jitter_random_order else 0
+    k = jax_split(jax.random.split(k, n), 6)  # k_h, k_v, k_j, k_n, k_d, k_bc
+    jitter = (replay_jitter(k[:, 2], cfg.brightness, cfg.contrast, cfg.saturation, cfg.hue,
+                            cfg.jitter_p, order) if cfg.jitter_p > 0 else None)
+    bc = None
+    if cfg.bc_p > 0:
+        kb = jax_split(k[:, 5], 3)
+        bc = P.BrightContrastParams(
+            alpha=_tensor(1.0 + _uniform(kb[:, 0], *cfg.bc_contrast)),
+            beta=_tensor(_uniform(kb[:, 1], *cfg.bc_brightness)),
+            apply=_tensor(_bernoulli(kb[:, 2], cfg.bc_p)))
+    distort = (replay_grid(k[:, 4], 5, cfg.distort_limit, cfg.distort_p)
+               if cfg.distort_p > 0 else None)
+    kn = jax_split(k[:, 3], 3)
+    normal = jax.vmap(lambda key: jax.random.normal(key, (*hw, channels)))(kn[:, 1])
+    noise = P.NoiseParams(var=_tensor(_uniform(kn[:, 0], *cfg.noise_var)),
+                          normal=_tensor(normal), apply=_tensor(_bernoulli(kn[:, 2], cfg.noise_p)))
+    return P.FinetuneAugParams(hflip=_tensor(_bernoulli(k[:, 0], cfg.hflip_p)),
+                               vflip=_tensor(_bernoulli(k[:, 1], cfg.vflip_p)),
+                               jitter=jitter, bc=bc, distort=distort, noise=noise)
+
+
+def replay_jax_eval_params(rng, n: int, *, hflip_p=0.5, vflip_p=0.5, distort_p=0.0,
+                           distort_limit=0.3):
+    """The draws of the JAX ``eval_augment_batch`` (``pipeline.py:261-279``)."""
+    import jax
+
+    from cp2_tpu_torch.augment import pipeline as P
+
+    k = jax_split(jax.random.split(rng, n), 3)  # k_h, k_v, k_d
+    return P.EvalAugParams(
+        hflip=_tensor(_bernoulli(k[:, 0], hflip_p)) if hflip_p > 0 else None,
+        vflip=_tensor(_bernoulli(k[:, 1], vflip_p)) if vflip_p > 0 else None,
+        distort=(replay_grid(k[:, 2], 5, distort_limit, distort_p) if distort_p > 0
+                 else None))

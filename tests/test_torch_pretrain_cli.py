@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import narrow_unet_backbones, torch_encoder
+from _torch_port_common import narrow_unet_backbones, torch_encoder, torchvision_name
 from cp2_tpu_torch.checkpoint import (
     gc_checkpoints,
     latest_checkpoint,
@@ -247,19 +247,59 @@ def test_resume_is_bit_exact(data, tmp_path):
     ("--negative_type", "HARD"), ("--lmbd_pixel_corr_weight", "2"),
     ("--imagenet_checkpoint", "resnet50.pth"), ("WORLD_SIZE", "2")])
 def test_unported_options_raise(data, tmp_path, monkeypatch, flag):
-    """What the port does not run (``--imagenet_checkpoint``, more than one
-    process) raises ``NotImplementedError``; flag combinations the
-    validation web refuses (MoCo on a U-Net, CP2 with a negative type or
-    correspondence weights) raise ``ValueError``, as in the JAX CLI."""
+    """What the port does not run (more than one process) raises
+    ``NotImplementedError``; flag combinations the validation web refuses
+    (MoCo on a U-Net, CP2 with a negative type or correspondence weights)
+    raise ``ValueError``, as in the JAX CLI; ``--imagenet_checkpoint`` is
+    ported and reads its file, so a missing one raises
+    ``FileNotFoundError``."""
     if flag[0] == "WORLD_SIZE":
         monkeypatch.setenv(*flag)
         args = _args(data, tmp_path, "x")
     else:
         args = _args(data, tmp_path, "x", *flag)
         args.pretrain_from_scratch = False
-    unported = flag[0] in ("WORLD_SIZE", "--imagenet_checkpoint")
-    with pytest.raises(NotImplementedError if unported else ValueError):
+        args.batch_size = 8  # the 24 files make 3 batches: the run gets to the load
+    expected ={"WORLD_SIZE": NotImplementedError,
+                "--imagenet_checkpoint": FileNotFoundError}.get(flag[0], ValueError)
+    with pytest.raises(expected):
         pretrain.main(args, device="cpu")
+
+
+def test_imagenet_checkpoint_loads_into_both_encoders(data, tmp_path):
+    """``--imagenet_checkpoint``: a torchvision-layout ResNet-18 (with ``fc``
+    and ``num_batches_tracked``, which are ignored), made from seeded numpy,
+    lands in the query encoder's backbone, parameters and BatchNorm
+    statistics, and the EMA key encoder is a copy of it; the head keeps its
+    initial weights (``cp2_tpu/train/pretrain.py:683-718``)."""
+    from cp2_tpu_torch.config import Config
+    from cp2_tpu_torch.ssl import SSLEncoder
+
+    model_cfg = dict(Config.fromfile(data[1]).model)
+    hp = SSLHyperParams.for_variant(PretrainType.CP2, queue_len=24)
+    state = create_pretrain_state(SSLEncoder(model_cfg), make_optimizer("sgd", 0.1), hp,
+                                  seed=0, device="cpu")
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    prefix = "encoder.backbone."
+    r = np.random.RandomState(7)
+    backbone = {k[len(prefix):]: v for k, v in before.items() if k.startswith(prefix)}
+    wanted = {k: torch.from_numpy(r.randn(*v.shape).astype(np.float32))
+              for k, v in backbone.items()}
+    tv = {torchvision_name(k): v for k, v in wanted.items()}
+    assert len(tv) == len(wanted)
+    tv.update({"fc.weight": torch.zeros(10, 64), "fc.bias": torch.zeros(10),
+               "bn1.num_batches_tracked": torch.tensor(5)})
+    path = tmp_path / "resnet18.pth"
+    torch.save({"state_dict": tv, "epoch": 90}, path)
+
+    pretrain.load_imagenet_backbone(state, str(path))
+    for model in (state.model, state.ema_model):
+        sd = model.state_dict()
+        for k, v in wanted.items():
+            assert torch.equal(sd[prefix + k], v), k
+        for k, v in before.items():
+            if not k.startswith(prefix):
+                assert torch.equal(sd[k], v), k
 
 
 # --pretrain_type → extra flags (the repo's run scripts' own, cut to size).
