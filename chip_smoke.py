@@ -28,6 +28,7 @@ Phases, in order; any failure exits non-zero:
             ``make_pretrain_step``: 2 warm-up and 5 timed steps, the launch
             counts of the kernels over those 7 steps, and the kernel held
             against the plain version on the step's own dense features;
+            and the same step with the network fed channels-last;
 6. augment  the on-device pretrain augmentation at full width: raw
             (32, 256, 256, 3) uint8 ``fg``, ``bg0``, ``bg1`` to 224x224:
             parameters drawn on the CPU and applied on the card and on the
@@ -77,7 +78,34 @@ Phases, in order; any failure exits non-zero:
             graft loads tensors, losses finite, the monitored key in
             ``metrics.jsonl``, one best checkpoint left, the test keys, no
             dense-loss launch; quiet step, images/s, eval time per epoch,
-            peak memory, and the step with a channels-last input beside it.
+            peak memory, and the step with a channels-last input beside it;
+12. mirror  the mirror (CutPaste) path on the card against the CPU:
+            CutPaste parameters drawn on the CPU and applied on both to
+            10 512x512 images with mirrors, REGULAR and SCAR rotated by up to
+            45 degrees, up to 3 patches (images to 1e-6, masks and targets
+            equal), the samplers on the card's generator against their laws,
+            the CLI's whole ``prepare`` at its shape (images to 1e-5); one
+            narrow float32 mirror step of OUTPUT and of NONE (dropout 0) to
+            1e-4, an eval step with a padded row (counts equal); no
+            dense-loss launch;
+13. mir cli the mirror pretrain CLI (``cp2_tpu_torch.train.mirror_pretrain``)
+            at its defaults: ``config_finetune.py``, 2 classes, batch 10,
+            512x512, bfloat16, ``--variant OUTPUT``, 2 epochs of 8 steps on
+            synthetic 544x544 PNGs listed by ``train.csv`` and ``val.csv``;
+            ``lemon-cutpaste.sh``'s leg (``--lemon_data --variant NONE
+            --batch-size 16 --fast_dev_run``, 576x1056 frames); a finetune
+            ``--pretrain_type MIRROR --fast_dev_run`` from the OUTPUT run's
+            best checkpoint on phase 11's polyp pairs: finite losses, the
+            train keys and ``val_loss_epoch``, checkpoints tagged MIRROR, the
+            graft loads tensors; step call, images/s, val time, peak memory;
+14. serve   inference and serving from phase 11's polyp best checkpoint
+            (352x352, bfloat16): ``init_segmentor``, whole inference at batch
+            8, slide inference (256 windows, stride 170: a 2x2 grid whose
+            counts equal a count by hand), ``dataset_test`` with a flip view
+            on 4 images; ``export_segmentor`` whole at batch 8 (the loaded
+            artifact's class map equals the live module's), a symbolic batch
+            checked at batches 1 and 3, slide logits in float32 within 1e-5;
+            latency eager and exported, images/s, artifact bytes, peak memory.
 
 The last lines are one JSON object on the kernels (with their launches on
 every path), the card's name and power limit, and
@@ -466,6 +494,9 @@ def full_step(dl):
     log(f"  launches over 7 steps: {launches}")
     log(f"  median of 5 timed steps {med:.2f} ms, {ips:.1f} images/s, peak memory "
         f"{peak / 2**30:.2f} GiB, on {gpu_line()}")
+    channels_last = channels_last_step_ms(state, step, batch)
+    log(f"  the same step with the network fed a channels-last copy of its input instead "
+        f"of the encoder's explicit NCHW one: {channels_last:.2f} ms (median of 3 after 2)")
 
     # the kernel against the plain version on the step's own features
     q, k, a, b = dense_features(state, batch, os_)
@@ -484,7 +515,30 @@ def full_step(dl):
     if err_loss > F32_TOL["loss_rtol"] or err_dq > F32_TOL["grad_rtol"]:
         raise SystemExit("kernel disagrees with the plain version on the step's features")
     return launches, dict(median_step_ms=med, images_per_s=ips, peak_bytes=peak,
-                          losses=losses, step_ms=times)
+                          losses=losses, step_ms=times, channels_last_step_ms=channels_last)
+
+
+def channels_last_step_ms(state, step, batch):
+    """The step with ``SSLEncoder``'s explicit NCHW replaced by a
+    channels-last copy (what a contiguous NHWC batch becomes when only
+    permuted): median of 3 steps after 2."""
+    from cp2_tpu_torch.ssl import model as ssl_model
+
+    explicit = ssl_model._nchw
+    ssl_model._nchw = lambda img: img.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    times = []
+    try:
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            metrics["loss"].item()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    finally:
+        ssl_model._nchw = explicit
+    return statistics.median(times[2:])
 
 
 # ---------------------------------------------------------------------------
@@ -1377,22 +1431,24 @@ def synthetic_pairs(root, splits, hw, classes, seed):
 
 
 class FinetuneClock:
-    """Wraps ``make_seg_steps`` so that every train and eval step ends in
-    ``torch.cuda.synchronize()``; records (kind, call s, since the previous
-    train step's end s, loss) per call."""
+    """Wraps a step factory (``make_seg_steps``, ``make_mirror_steps``) so
+    that every train and eval step ends in ``torch.cuda.synchronize()``;
+    records (kind, call s, since the previous train step's end s, loss) per
+    call, the losses read under ``train_key`` and ``eval_key``."""
 
-    def __init__(self, make):
+    def __init__(self, make, train_key="loss", eval_key="loss"):
         self.make = make
+        self.train_key, self.eval_key = train_key, eval_key
         self.rows = []
         self.last = None
 
     def __call__(self, *a, **kw):
-        train_step, eval_step, metrics_of = self.make(*a, **kw)
+        train_step, eval_step, *rest = self.make(*a, **kw)
 
         def timed_train(state, batch, generator, confusion):
             start = time.perf_counter()
             state, confusion, m = train_step(state, batch, generator, confusion)
-            loss = m["loss"].item()
+            loss = m[self.train_key].item()
             torch.cuda.synchronize()
             now = time.perf_counter()
             self.rows.append(("train", now - start, now - self.last, loss))
@@ -1402,13 +1458,13 @@ class FinetuneClock:
         def timed_eval(state, batch, confusion):
             start = time.perf_counter()
             confusion, m = eval_step(state, batch, confusion)
-            loss = m["loss"].item()
+            loss = m[self.eval_key].item()
             torch.cuda.synchronize()
             now = time.perf_counter()
             self.rows.append(("eval", now - start, now - self.last, loss))
             return confusion, m
 
-        return timed_train, timed_eval, metrics_of
+        return (timed_train, timed_eval, *rest)
 
 
 class ChannelsLast(torch.nn.Module):
@@ -1608,9 +1664,557 @@ def check_finetune_cli(dl):
     finally:
         segmentation_task.make_seg_steps = clock.make
         convert.load_pretrained_into_segmentor = real_load
-    shutil.rmtree(FT_WORK, ignore_errors=True)
+    # phase 7's checkpoints have served; the polyp pairs and best checkpoint
+    # stay until phases 13 and 14 have used them
     shutil.rmtree(CLI_WORK, ignore_errors=True)
     return launches, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the mirror (CutPaste) path, card against CPU
+# ---------------------------------------------------------------------------
+
+MIRROR_HW = (512, 512)
+MIRROR_BATCH = 10
+CUTPASTE_CASES = {  # (config, mirrors): REGULAR, and SCAR rotated by up to 45 degrees
+    "regular": dict(num_classes=2, max_num_patches=3),
+    "scar": dict(num_classes=3, max_num_patches=3, min_rotation=0, max_rotation=45),
+}
+SMALL_MIRROR_MODEL = dict(SMALL_SEG_MODEL, auxiliary_head=None)
+
+
+def cutpaste_law(p, hw, cfg):
+    """Problems of CutPaste draws against their law: class and patch-count
+    frequencies within 4 standard errors, every area, aspect and rotation
+    in its range, every rotated paste box and source patch in the frame."""
+    from cp2_tpu_torch.augment.cutpaste import class_probabilities
+
+    p = type(p)(*(v.cpu() for v in p))
+    n, slots = p.active.shape
+    problems = []
+
+    def within(mean, want, sd, m, what):
+        if abs(mean - want) > 4 * sd / math.sqrt(m):
+            problems.append(f"{what} {mean:.4f}, want {want:.4f}")
+
+    for k, pk in enumerate(class_probabilities(cfg.num_classes)):
+        within(float((p.target == k).float().mean()), pk, math.sqrt(pk * (1 - pk)), n,
+               f"class {k} frequency")
+    counts = p.active.sum(dim=1)
+    for k in range(1, slots + 1):
+        within(float((counts == k).float().mean()), 1 / slots,
+               math.sqrt((1 / slots) * (1 - 1 / slots)), n, f"{k}-patch frequency")
+    h, w = hw
+    area = (4 * p.half_h * p.half_w / (h * w)).double()
+    aspect = (p.half_w / p.half_h).double()
+    degrees = torch.rad2deg(torch.atan2(p.sin, p.cos)).double()
+    eps = 1e-4
+    laws = {1: ((cfg.min_area_scale, cfg.max_area_scale),
+                (cfg.min_aspect_ratio, cfg.max_aspect_ratio), (0.0, 0.0)),
+            2: ((cfg.min_area_scale, cfg.max_area_scale / 2), (3.0, 6.0),
+                (cfg.min_rotation, cfg.max_rotation))}
+    for cls, ranges in laws.items():
+        sel = (p.target == cls)[:, None].expand_as(p.active)
+        if not sel.any():
+            continue
+        for name, v, (lo, hi) in zip(("area", "aspect", "rotation"), (area, aspect, degrees),
+                                     ranges):
+            x = v[sel]
+            if float(x.min()) < lo - eps * max(1, abs(lo)) or float(x.max()) > hi + eps * max(1, abs(hi)):
+                problems.append(f"class {cls} {name} in [{float(x.min()):.4f}, "
+                                f"{float(x.max()):.4f}], want [{lo}, {hi}]")
+            if hi > lo:
+                within(float(x.mean()), (lo + hi) / 2, (hi - lo) / math.sqrt(12), int(sel.sum()),
+                       f"class {cls} mean {name}")
+    bh = p.half_h * p.cos.abs() + p.half_w * p.sin.abs()
+    bw = p.half_w * p.cos.abs() + p.half_h * p.sin.abs()
+    for lo, hi, size, what in ((p.dst_cy - bh, p.dst_cy + bh, h, "paste rows"),
+                               (p.dst_cx - bw, p.dst_cx + bw, w, "paste columns"),
+                               (p.src_cy - p.half_h, p.src_cy + p.half_h, h, "source rows"),
+                               (p.src_cx - p.half_w, p.src_cx + p.half_w, w, "source columns")):
+        if float(lo.min()) < -eps or float(hi.max()) > size + eps:
+            problems.append(f"{what} in [{float(lo.min()):.3f}, {float(hi.max()):.3f}]")
+    return problems
+
+
+def check_cutpaste():
+    """CutPaste and the CLI's whole ``prepare`` at the CLI's shape, drawn on
+    the CPU and applied on the card and the CPU; the samplers on the card's
+    generator against their laws."""
+    from cp2_tpu_torch.augment import cutpaste as C
+    from cp2_tpu_torch.train import mirror_pretrain as MP
+    from cp2_tpu_torch.types import MirrorVariant
+
+    out = {}
+    r = np.random.RandomState(12)
+    images = torch.from_numpy(r.rand(MIRROR_BATCH, *MIRROR_HW, 3).astype(np.float32))
+    mirrors = torch.from_numpy(r.rand(MIRROR_BATCH, *MIRROR_HW, 3).astype(np.float32))
+    for name, fields in CUTPASTE_CASES.items():
+        cfg = C.CutPasteConfig(**fields)
+        params = C.sample_cutpaste(torch.Generator().manual_seed(3), MIRROR_BATCH, MIRROR_HW, cfg)
+        ref = C.apply_cutpaste(images, mirrors, params)
+        got = C.apply_cutpaste(images.cuda(), mirrors.cuda(), to_device(params, "cuda"))
+        err = max(float((g.cpu() - c).abs().max()) for g, c in zip(got[:2], ref[:2]))
+        equal = torch.equal(got[2].cpu(), ref[2]) and torch.equal(got[3].cpu(), ref[3])
+        pasted = int((ref[2] > 0).sum())
+        if name == "scar" and not bool((params.target == 2).any()):
+            raise SystemExit("phase 12: the SCAR case drew no SCAR image")
+        law = cutpaste_law(C.sample_cutpaste(torch.Generator(device="cuda").manual_seed(4),
+                                             N_DRAWS, MIRROR_HW, cfg), MIRROR_HW, cfg)
+        ok = err <= FT_AUG_ATOL and equal and pasted > 0 and not law
+        log(f"  cutpaste {name} ({MIRROR_BATCH}, {MIRROR_HW[0]}, {MIRROR_HW[1]}) with mirrors, "
+            f"{cfg.max_num_patches} patches max: images and mirrors max abs diff {err:.2e}, masks "
+            f"and targets {'equal' if equal else 'DIFFER'} ({pasted} pixels pasted); samplers on "
+            f"the card's generator, {N_DRAWS} draws: {'by their law' if not law else law} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 12: CutPaste {name} on the card disagrees")
+        out[name] = dict(max_abs_err=err, pixels_pasted=pasted)
+    # the CLI's prepare: resized crops of (hw + 32)² frames, jitter, CutPaste
+    src_hw = (MIRROR_HW[0] + 32, MIRROR_HW[1] + 32)
+    frames = torch.from_numpy(r.randint(0, 256, (MIRROR_BATCH, *src_hw, 3), dtype=np.uint8))
+    mirror_frames = torch.from_numpy(r.randint(0, 256, (MIRROR_BATCH, *src_hw, 3),
+                                               dtype=np.uint8))
+    cfg = C.CutPasteConfig(num_classes=2)
+    params = MP.sample_prepare_params(torch.Generator().manual_seed(5), MIRROR_BATCH, src_hw,
+                                      MIRROR_HW, cfg, True)
+    ref = MP.apply_prepare(frames, mirror_frames, params, MIRROR_HW)
+    got = MP.apply_prepare(frames.cuda(), mirror_frames.cuda(), to_device(params, "cuda"),
+                           MIRROR_HW)
+    err = max(float((got[k].cpu() - ref[k]).abs().max()) for k in ("image", "mirror"))
+    equal = all(torch.equal(got[k].cpu(), ref[k]) for k in ("mask", "target"))
+    ok = err <= AUG_ATOL and equal
+    torch.cuda.synchronize()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    frames_c, mirrors_c = frames.cuda(), mirror_frames.cuda()
+    prep_ms = cuda_ms(lambda: MP.prepare(gen, frames_c, mirrors_c, MIRROR_HW, cfg,
+                                         MirrorVariant.OUTPUT), iters=10)
+    log(f"  the CLI's prepare ({MIRROR_BATCH} frames of {src_hw[0]}x{src_hw[1]} to "
+        f"{MIRROR_HW[0]}x{MIRROR_HW[1]}, OUTPUT): images {err:.2e} (1e-5, as phase 6), masks "
+        f"and targets {'equal' if equal else 'DIFFER'}; {prep_ms:.2f} ms a batch by CUDA events "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 12: the mirror CLI's prepare on the card disagrees")
+    out["prepare"] = dict(max_abs_err=err, ms=prep_ms)
+    return out
+
+
+def check_mirror_steps(dl):
+    """One float32 train step of each variant and a padded eval step of the
+    narrow segmentor (dropout 0) from one seed on both devices."""
+    from cp2_tpu_torch.models import build_segmentor
+    from cp2_tpu_torch.models.layers import init_flax_like_
+    from cp2_tpu_torch.ops.metrics import ConfusionState
+    from cp2_tpu_torch.train import mirror_task
+    from cp2_tpu_torch.train import segmentation_task as task
+    from cp2_tpu_torch.types import MirrorVariant
+
+    img, mask = seg_batch(8, 64, 0)
+    mirror, _ = seg_batch(8, 64, 2)
+    ev_img, ev_mask = seg_batch(4, 64, 1)
+    ev_mirror, _ = seg_batch(4, 64, 3)
+    valid = np.array([True, True, True, False])
+    launches, numbers = {}, {}
+    for variant in ("OUTPUT", "NONE"):
+        train_step, eval_step = mirror_task.make_mirror_steps(
+            2, (64, 64), mirror_variant=MirrorVariant[variant], lmbd_compare_loss=1.0)
+        out = {}
+        for device in ("cpu", "cuda"):
+            model = init_flax_like_(build_segmentor(SMALL_MIRROR_MODEL),
+                                    torch.Generator().manual_seed(0))
+            state = task.create_seg_state(model, task.make_adam(1e-3, 1e-4), device)
+
+            def put(x):
+                return torch.from_numpy(x).to(device)
+
+            if device == "cuda":
+                torch.cuda.synchronize()
+                dl.reset_launch_counts()  # this path's run starts here
+            state, conf, m = train_step(
+                state, {"image": put(img), "mirror": put(mirror), "mask": put(mask)},
+                torch.Generator(device=device).manual_seed(0), ConfusionState.create(2, device))
+            ev_conf, ev_m = eval_step(state, {"image": put(ev_img), "mirror": put(ev_mirror),
+                                              "mask": put(ev_mask), "valid": put(valid)},
+                                      ConfusionState.create(2, device))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches[variant] = dict(dl.LAUNCHES)  # read just after the run
+            out[device] = dict(
+                metrics={k: v.item() for k, v in m.items()},
+                grads={k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+                buffers={k: b.detach().cpu() for k, b in state.model.named_buffers()},
+                conf=conf.matrix.cpu(), ev_conf=ev_conf.matrix.cpu(),
+                ev_loss=ev_m["val_loss"].item(), ev_weight=ev_m["weight"].item())
+            del state, model
+        cpu, gpu = out["cpu"], out["cuda"]
+        err_loss = max(abs(gpu["metrics"][k] - v) / max(abs(v), 1e-12)
+                       for k, v in cpu["metrics"].items() if v != 0)
+        err_grad = max(max_rel(gpu["grads"][k], v) for k, v in cpu["grads"].items()
+                       if v.abs().max() > 0)
+        err_stats = max(max_rel(gpu["buffers"][k], v) for k, v in cpu["buffers"].items())
+        err_ev = abs(gpu["ev_loss"] - cpu["ev_loss"]) / abs(cpu["ev_loss"])
+        counts_equal = (torch.equal(gpu["conf"], cpu["conf"])
+                        and torch.equal(gpu["ev_conf"], cpu["ev_conf"]))
+        views = 2 if variant == "OUTPUT" else 1
+        padded_out = (int(cpu["ev_conf"].sum()) == views * 3 * 64 * 64
+                      and cpu["ev_weight"] == gpu["ev_weight"] == 3.0)
+        compare_live = (cpu["metrics"]["train_compare_loss"] > 0) == (variant == "OUTPUT")
+        ok = (err_loss <= 1e-4 and err_grad <= 1e-4 and err_stats <= 1e-4 and err_ev <= 1e-4
+              and counts_equal and padded_out and compare_live
+              and all(v == 0 for v in launches[variant].values()))
+        log(f"  mirror step {variant}, card vs CPU (float32, batch 8, 64x64): losses rel "
+            f"{err_loss:.2e}, gradients {err_grad:.2e}, BatchNorm stats {err_stats:.2e} (each "
+            f"normwise, 1e-4); eval with a padded row: loss rel {err_ev:.2e}, confusion counts "
+            f"{'equal' if counts_equal else 'DIFFER'} ({int(cpu['ev_conf'].sum())} pixels "
+            f"counted); dense-loss launches {launches[variant]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 12: the mirror step {variant} on the card disagrees")
+        numbers[variant] = dict(loss_rel=err_loss, grad_rel=err_grad, stats_rel=err_stats,
+                                eval_loss_rel=err_ev, metrics=cpu["metrics"])
+    return launches, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the mirror CLI at full width
+# ---------------------------------------------------------------------------
+
+MIRROR_WORK = os.path.join("work_dirs", "chip_smoke_mirror")
+MIRROR_SPLITS = {"train": 8 * MIRROR_BATCH, "val": 2 * MIRROR_BATCH + 4}  # 8 steps an epoch
+MIRROR_EPOCHS = 2
+LEMON_MIRROR_BATCH = 16
+MIRROR_TRAIN_KEYS = {"train_loss", "train_class_loss", "train_compare_loss"}
+
+
+def csv_listed_frames(directory, splits, hw, seed):
+    """Smooth random RGB frames as PNGs, each split listed by its CSV."""
+    os.makedirs(directory, exist_ok=True)
+    r = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, hw[0]), np.linspace(0, 1, hw[1]), indexing="ij")
+    for split, count in splits.items():
+        names = []
+        for i in range(count):
+            f = r.uniform(1, 8, (3, 2))
+            ph = r.uniform(0, 2 * np.pi, (3,))
+            img = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (f[c, 0] * yy + f[c, 1] * xx) + ph[c])
+                            for c in range(3)], axis=-1)
+            names.append(f"{split}_{i:04d}.png")
+            write_png(os.path.join(directory, names[-1]), (img * 255).astype(np.uint8))
+        with open(os.path.join(directory, f"{split}.csv"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return sum(splits.values())
+
+
+def check_mirror_cli(dl, polyp_pairs):
+    """Phase 13; returns the launches by run and the runs' numbers."""
+    from cp2_tpu_torch.checkpoint import convert
+    from cp2_tpu_torch.train import finetune, mirror_pretrain, mirror_task
+
+    shutil.rmtree(MIRROR_WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    frames = os.path.join(MIRROR_WORK, "frames")
+    lemon = os.path.join(MIRROR_WORK, "lemon")
+    n_frames = csv_listed_frames(frames, MIRROR_SPLITS, (544, 544), seed=13)
+    n_lemon = csv_listed_frames(lemon, {"train": LEMON_MIRROR_BATCH, "val": 8}, (576, 1056),
+                                seed=14)
+    log(f"  wrote {n_frames} frames of 544x544 and {n_lemon} of 576x1056 with train.csv and "
+        f"val.csv in {time.perf_counter() - t0:.1f} s")
+    logs = os.path.join(MIRROR_WORK, "logs")
+    clock = FinetuneClock(mirror_task.make_mirror_steps, train_key="train_loss",
+                          eval_key="val_loss")
+    mirror_task.make_mirror_steps = clock
+    reports = []
+    real_load = convert.load_pretrained_into_segmentor
+
+    def recording_load(*a, **kw):
+        merged, report = real_load(*a, **kw)
+        reports.append(report)
+        return merged, report
+
+    convert.load_pretrained_into_segmentor = recording_load
+    runs = {
+        "OUTPUT": ["--run_id", "output", "--data_dirs", frames, "--epochs", str(MIRROR_EPOCHS),
+                   "--variant", "OUTPUT"],
+        "lemon_NONE": ["--run_id", "lemon", "--data_dirs", lemon, "--lemon_data", "--variant",
+                       "NONE", "--batch-size", str(LEMON_MIRROR_BATCH), "--fast_dev_run"],
+    }
+    launches, numbers = {}, {}
+    try:
+        for run, flags in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            args = mirror_pretrain.get_args(["--log_dir", logs, "--prefetch_depth", "2"] + flags)
+            clock.rows = []
+            dl.reset_launch_counts()  # this path's run starts here
+            t = time.perf_counter()
+            clock.last = t
+            mirror_pretrain.main(args)
+            wall = time.perf_counter() - t
+            launches[f"mirror_cli_{run}"] = dict(dl.LAUNCHES)  # read just after the run
+            peak = torch.cuda.max_memory_allocated()
+            rows = list(clock.rows)
+            train_rows = [r for r in rows if r[0] == "train"]
+            run_dir = os.path.join(logs, args.run_id)
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                epoch_rows = [json.loads(line) for line in f]
+            epoch_rows = [r for r in epoch_rows if "epoch" in r]
+            best = sorted((d for d in os.listdir(run_dir) if d.isdigit()), key=int)
+            metas = []
+            for d in best:
+                with open(os.path.join(run_dir, d, "meta.json")) as f:
+                    metas.append(json.load(f))
+            problems = []
+            if not train_rows or not all(math.isfinite(r[-1]) for r in rows):
+                problems.append(f"losses {[r[-1] for r in rows]}")
+            for r in epoch_rows:
+                if not (MIRROR_TRAIN_KEYS | {"val_loss_epoch"}) <= set(r) or not all(
+                        math.isfinite(r[k]) for k in MIRROR_TRAIN_KEYS | {"val_loss_epoch"}):
+                    problems.append(f"metrics.jsonl row {r}")
+            if len(epoch_rows) != args.epochs:
+                problems.append(f"{len(epoch_rows)} epoch rows for {args.epochs} epochs")
+            if not metas or any(m.get("pretrain_type") != "MIRROR" for m in metas):
+                problems.append(f"checkpoint metas {metas}")
+            if any(v != 0 for v in launches[f"mirror_cli_{run}"].values()):
+                problems.append(f"dense-loss launches {launches[f'mirror_cli_{run}']}")
+            numbers[run] = dict(
+                flags=flags, img_hw=[args.img_x_size, args.img_y_size], batch=args.batch_size,
+                train_step_ms=[r[1] * 1e3 for r in train_rows],
+                train_gap_ms=[r[2] * 1e3 for r in train_rows], losses=[r[-1] for r in train_rows],
+                val_losses=[r.get("val_loss_epoch") for r in epoch_rows], peak_bytes=peak,
+                run_wall_s=wall, checkpoints=best, launches=launches[f"mirror_cli_{run}"])
+            if run == "OUTPUT" and not problems:
+                steps_per_epoch = MIRROR_SPLITS["train"] // args.batch_size
+                epoch1 = train_rows[steps_per_epoch:]
+                quiet = statistics.median(r[1] * 1e3 for r in epoch1[1:])
+                ips = args.batch_size * (len(epoch1) - 1) / sum(r[2] for r in epoch1[1:])
+                evals = eval_seconds(rows, math.ceil(MIRROR_SPLITS["val"] / args.batch_size))
+                numbers[run].update(quiet_step_ms_median=quiet, images_per_s_epoch1=ips,
+                                    val_s_per_epoch=evals)
+                log(f"  mirror OUTPUT: {len(train_rows)} steps over {args.epochs} epochs; epoch 1 "
+                    f"step call median {quiet:.1f} ms (steps 1-{len(epoch1) - 1}), {ips:.1f} "
+                    f"images/s end to end after step 0 (each with its mirror; loader, copy and "
+                    f"prepare included); val {['%.2f' % e for e in evals]} s per epoch")
+            log(f"  mirror {run:10s} {args.img_x_size}x{args.img_y_size}, batch {args.batch_size}: "
+                f"step calls {['%.1f' % (r[1] * 1e3) for r in train_rows]} ms; "
+                f"losses {['%.4f' % r[-1] for r in train_rows]}; val_loss_epoch "
+                f"{[round(r.get('val_loss_epoch', math.nan), 4) for r in epoch_rows]}; checkpoints "
+                f"{best} (meta pretrain_type {[m.get('pretrain_type') for m in metas]}); peak "
+                f"{peak / 2**30:.2f} GiB; dense-loss launches {launches[f'mirror_cli_{run}']}; "
+                f"run {wall:.1f} s {'ok' if not problems else 'FAIL: ' + '; '.join(problems)}")
+            if problems:
+                raise SystemExit(f"phase 13: {run}: {'; '.join(problems)}")
+            torch.cuda.empty_cache()
+
+        # a MIRROR finetune from the OUTPUT run's best checkpoint on phase 11's pairs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reports.clear()
+        args = finetune.get_args([
+            "--run_id", "from_mirror", "--log_dir", logs,
+            "--img_dirs", os.path.join(polyp_pairs, "images"),
+            "--mask_dirs", os.path.join(polyp_pairs, "masks"), "--batch_size", str(FT_BATCH),
+            "--visualize_freq", "0", "--pretrain_type", "MIRROR",
+            "--pretrain_path", os.path.join(logs, "output"), "--fast_dev_run"])
+        dl.reset_launch_counts()  # this path's run starts here
+        t = time.perf_counter()
+        test_metrics = finetune.main(args)
+        wall = time.perf_counter() - t
+        launches["finetune_MIRROR"] = dict(dl.LAUNCHES)  # read just after the run
+        loaded = len(reports[0]["loaded"]) if reports else 0
+        ok = (loaded > 0 and all(math.isfinite(v) for v in test_metrics.values())
+              and all(v == 0 for v in launches["finetune_MIRROR"].values()))
+        numbers["finetune_MIRROR"] = dict(loaded_tensors=loaded, test_metrics=test_metrics,
+                                          run_wall_s=wall, launches=launches["finetune_MIRROR"],
+                                          peak_bytes=torch.cuda.max_memory_allocated())
+        log(f"  finetune --pretrain_type MIRROR from the OUTPUT run's best checkpoint: loaded "
+            f"{loaded} tensors (dropped {reports[0].get('dropped') if reports else None}); test "
+            f"{test_metrics.get('test_BinaryJaccardIndex', math.nan):.4f}; dense-loss launches "
+            f"{launches['finetune_MIRROR']}; run {wall:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("phase 13: the MIRROR finetune did not load the mirror checkpoint")
+    finally:
+        mirror_task.make_mirror_steps = clock.make
+        convert.load_pretrained_into_segmentor = real_load
+    shutil.rmtree(MIRROR_WORK, ignore_errors=True)
+    return launches, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 14: inference and serving at full width
+# ---------------------------------------------------------------------------
+
+INFER_BATCH = 8
+SLIDE_CROP, SLIDE_STRIDE = (256, 256), (170, 170)
+
+
+def hand_counts(hw, crop, stride):
+    """Window visits per pixel, by stepping the grid as mmseg does."""
+    counts = np.zeros(hw, np.int64)
+    y = 0
+    while True:
+        x = 0
+        while True:
+            y0, x0 = min(y, hw[0] - crop[0]), min(x, hw[1] - crop[1])
+            counts[y0:y0 + crop[0], x0:x0 + crop[1]] += 1
+            if x + crop[1] >= hw[1]:
+                break
+            x += stride[1]
+        if y + crop[0] >= hw[0]:
+            break
+        y += stride[0]
+    return counts
+
+
+def median_ms(fn, iters=10, warmup=3):
+    """Median host-clock time of ``fn()`` ending in a synchronise."""
+    times = []
+    for i in range(warmup + iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def check_inference_serving(dl, checkpoint):
+    """Phase 14 from phase 11's polyp best checkpoint; returns the launches
+    by path and the numbers."""
+    from cp2_tpu_torch import serving
+    from cp2_tpu_torch.train import inference, test_loop
+    import cp2_tpu_torch
+
+    config = os.path.join(os.path.dirname(cp2_tpu_torch.__file__), "configs",
+                          "config_finetune.py")
+    hw = (352, 352)
+    r = np.random.RandomState(14)
+    raw = torch.from_numpy(r.randint(0, 256, (INFER_BATCH, *hw, 3), dtype=np.uint8)).cuda()
+    x = raw.float() / 255.0
+    launches, out = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dl.reset_launch_counts()  # the inference path's run starts here
+    model = inference.init_segmentor(config, checkpoint, num_classes=2, dtype=torch.bfloat16)
+    with torch.no_grad():
+        whole = inference.whole_inference(model, x)
+        classes = inference.inference_segmentor(model, x)
+        slide = inference.slide_inference(model, x, SLIDE_CROP, SLIDE_STRIDE, 2)
+    counts = inference.slide_counts(hw, SLIDE_CROP, SLIDE_STRIDE, "cuda")
+    windows = inference.slide_windows(hw, SLIDE_CROP, SLIDE_STRIDE)
+    views = [[{"img": img, "img_metas": {"flip": False}},
+              {"img": img[:, ::-1].copy(), "img_metas": {"flip": True}}]
+             for img in x[:4].cpu().numpy()]
+    preds = test_loop.dataset_test(model, views)
+    with torch.no_grad():  # the same average computed here, view by view
+        want = []
+        for img in x[:4]:
+            p = torch.softmax(inference.whole_inference(model, img[None]), -1)
+            p = p + torch.softmax(inference.whole_inference(model, img.flip(1)[None]), -1).flip(2)
+            want.append(torch.argmax(p, -1)[0].cpu().numpy())
+    torch.cuda.synchronize()
+    launches["inference"] = dict(dl.LAUNCHES)  # read just after the run
+    problems = []
+    if tuple(whole.shape) != (INFER_BATCH, *hw, 2) or not torch.isfinite(whole).all():
+        problems.append(f"whole logits {tuple(whole.shape)}")
+    if not torch.equal(classes, whole.argmax(-1)):
+        problems.append("inference_segmentor's class map is not the logits' argmax")
+    if len(windows) != 4 or not np.array_equal(counts[0, ..., 0].cpu().numpy(),
+                                               hand_counts(hw, SLIDE_CROP, SLIDE_STRIDE)):
+        problems.append(f"slide windows {windows} or counts differ from a count by hand")
+    if tuple(slide.shape) != tuple(whole.shape) or not torch.isfinite(slide).all():
+        problems.append(f"slide logits {tuple(slide.shape)}")
+    if len(preds) != 4 or any(p.shape != hw or p.dtype != np.int64 for p in preds) or not all(
+            np.array_equal(p, w) for p, w in zip(preds, want)):
+        problems.append("dataset_test's flip average differs from the one computed here")
+    if any(v != 0 for v in launches["inference"].values()):
+        problems.append(f"dense-loss launches {launches['inference']}")
+    with torch.no_grad():
+        whole_ms = median_ms(lambda: inference.whole_inference(model, x))
+        slide_ms = median_ms(lambda: inference.slide_inference(model, x, SLIDE_CROP,
+                                                               SLIDE_STRIDE, 2))
+    peak = torch.cuda.max_memory_allocated()
+    agree = float((slide.argmax(-1) == classes).float().mean())
+    log(f"  inference, polyp checkpoint, 352x352, bf16, batch {INFER_BATCH}: whole {whole_ms:.2f} "
+        f"ms a batch ({INFER_BATCH / whole_ms * 1e3:.1f} images/s), slide 2x2 windows of 256 "
+        f"stride 170 {slide_ms:.2f} ms (counts {sorted(set(counts.flatten().tolist()))} equal a "
+        f"count by hand; class maps agree with whole on {100 * agree:.2f} % of pixels); "
+        f"dataset_test with a flip view on 4 images; peak {peak / 2**30:.2f} GiB; dense-loss "
+        f"launches {launches['inference']} {'ok' if not problems else 'FAIL: ' + '; '.join(problems)}")
+    if problems:
+        raise SystemExit(f"phase 14: inference: {'; '.join(problems)}")
+    out["inference"] = dict(whole_ms=whole_ms, slide_ms=slide_ms, peak_bytes=peak,
+                            images_per_s=INFER_BATCH / whole_ms * 1e3, slide_whole_agree=agree)
+    del model
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dl.reset_launch_counts()  # the serving path's run starts here
+    art_dir = os.path.join(FT_WORK, "serving")
+    os.makedirs(art_dir, exist_ok=True)
+    numbers = {}
+    t = time.perf_counter()
+    path = os.path.join(art_dir, "polyp_352_b8.pt2")
+    _, meta = serving.export_segmentor(config, checkpoint, path, img_hw=hw,
+                                       batch_size=INFER_BATCH, num_classes=2)
+    export_s = time.perf_counter() - t
+    art = serving.load_exported(path)
+    live = serving.make_inference_fn(inference.init_segmentor(config, checkpoint, num_classes=2,
+                                                              dtype=torch.bfloat16))
+    with torch.no_grad():
+        equal = torch.equal(art(raw), live(raw))
+        eager_ms = median_ms(lambda: live(raw))
+        exported_ms = median_ms(lambda: art(raw))
+    numbers["whole_b8"] = dict(bytes=meta["bytes"], export_s=export_s, eager_ms=eager_ms,
+                               exported_ms=exported_ms, class_maps_equal=equal,
+                               platforms=meta["platforms"])
+    t = time.perf_counter()
+    sym_path = os.path.join(art_dir, "polyp_352_symbolic.pt2")
+    _, sym_meta = serving.export_segmentor(config, checkpoint, sym_path, img_hw=hw,
+                                           batch_size=None, num_classes=2)
+    sym_s = time.perf_counter() - t
+    sym = serving.load_exported(sym_path)
+    with torch.no_grad():
+        sym_equal = {n: torch.equal(sym(raw[:n]), live(raw[:n])) for n in (1, 3)}
+    del live, art, sym
+    t = time.perf_counter()
+    slide_path = os.path.join(art_dir, "polyp_352_slide_f32.pt2")
+    _, slide_meta = serving.export_segmentor(config, checkpoint, slide_path, img_hw=hw,
+                                             batch_size=2, mode="slide", num_classes=2,
+                                             crop_size=SLIDE_CROP, stride=SLIDE_STRIDE,
+                                             bf16=False, return_logits=True)
+    slide_s = time.perf_counter() - t
+    slide_art = serving.load_exported(slide_path)
+    live_slide = serving.make_inference_fn(
+        inference.init_segmentor(config, checkpoint, num_classes=2), mode="slide",
+        num_classes=2, crop_size=SLIDE_CROP, stride=SLIDE_STRIDE, return_logits=True)
+    with torch.no_grad():
+        got, want_logits = slide_art(raw[:2]), live_slide(raw[:2])
+    slide_err = float((got - want_logits).abs().max())
+    slide_ok = bool(torch.allclose(got, want_logits, rtol=1e-5, atol=1e-5))
+    torch.cuda.synchronize()
+    launches["serving"] = dict(dl.LAUNCHES)  # read just after the run
+    peak = torch.cuda.max_memory_allocated()
+    ok = (equal and all(sym_equal.values()) and slide_ok and meta["platforms"] == ["cuda"]
+          and all(v == 0 for v in launches["serving"].values()))
+    numbers["symbolic"] = dict(bytes=sym_meta["bytes"], export_s=sym_s,
+                               class_maps_equal={str(k): v for k, v in sym_equal.items()})
+    numbers["slide_f32_logits"] = dict(bytes=slide_meta["bytes"], export_s=slide_s,
+                                       max_abs_err=slide_err)
+    log(f"  serving: whole, batch {INFER_BATCH}, bf16: {meta['bytes'] / 2**20:.1f} MiB artifact "
+        f"exported in {export_s:.1f} s; class map {'equal' if equal else 'DIFFERS'} to the live "
+        f"module's; {eager_ms:.2f} ms a batch eager, {exported_ms:.2f} ms the loaded program "
+        f"({INFER_BATCH / exported_ms * 1e3:.1f} images/s); symbolic batch (exported in "
+        f"{sym_s:.1f} s) at 1 and 3: {sym_equal}; slide logits float32 (exported in "
+        f"{slide_s:.1f} s) max abs diff {slide_err:.2e} (1e-5); peak {peak / 2**30:.2f} GiB; "
+        f"dense-loss launches {launches['serving']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 14: the exported program disagrees with the live module")
+    numbers["peak_bytes"] = peak
+    out["serving"] = numbers
+    return launches, out
 
 
 def main() -> int:
@@ -1680,25 +2284,44 @@ def main() -> int:
     ft_aug = check_finetune_augment()
     ft_step_launches, ft_step = check_finetune_step(dl)
 
-    # phase 11: the finetune CLI at full width, this slice's main path
+    # phase 11: the finetune CLI at full width
     log("finetune CLI:")
     ft_launches, ft_cli = check_finetune_cli(dl)
+
+    # phase 12: the mirror path, narrow and at the CLI's shape, card against CPU
+    log("mirror (CutPaste) augmentation and step, card vs CPU:")
+    cutpaste = check_cutpaste()
+    mirror_step_launches, mirror_step = check_mirror_steps(dl)
+
+    # phase 13: the mirror CLI at full width, then a MIRROR finetune from it
+    log("mirror CLI:")
+    mirror_launches, mirror_cli = check_mirror_cli(dl, os.path.join(FT_WORK, "polyp"))
+
+    # phase 14: inference and serving from phase 11's polyp checkpoint
+    log("inference and serving:")
+    serve_launches, serve = check_inference_serving(
+        dl, os.path.join(FT_WORK, "logs", "polyp", ft_cli["polyp"]["best_checkpoint"]))
+    shutil.rmtree(FT_WORK, ignore_errors=True)
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
                    "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
                    "cli_variants": cli9, "finetune_augment": ft_aug, "finetune_step": ft_step,
-                   "finetune_cli": ft_cli}, f, indent=1)
+                   "finetune_cli": ft_cli, "cutpaste": cutpaste, "mirror_step": mirror_step,
+                   "mirror_cli": mirror_cli, "inference_serving": serve}, f, indent=1)
     log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")
 
     def by_path(name):
         """Launches of one kernel on every path the script drives: the
-        pretrain step's paths, and the finetune paths, which run no
-        dense-loss kernel."""
+        pretrain step's paths, and the finetune, mirror, inference and
+        serving paths, which run no dense-loss kernel."""
         paths = {"phase5_step": step_launches[name], "phase7_cli_CP2": launches[name]}
         paths.update({f"phase8_{case}": n[name] for case, n in variant_launches.items()})
         paths.update({f"phase9_cli_{run}": n[name] for run, n in cli9_launches.items()})
         paths["phase10_finetune_step"] = ft_step_launches[name]
         paths.update({f"phase11_finetune_{run}": n[name] for run, n in ft_launches.items()})
+        paths.update({f"phase12_mirror_step_{v}": n[name] for v, n in mirror_step_launches.items()})
+        paths.update({f"phase13_{run}": n[name] for run, n in mirror_launches.items()})
+        paths.update({f"phase14_{run}": n[name] for run, n in serve_launches.items()})
         return paths
 
     kernels = [

@@ -52,6 +52,15 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _nchw(img: torch.Tensor) -> torch.Tensor:
+    """A contiguous NCHW copy of an NHWC batch, made explicitly, as
+    ``seg_forward`` does: cuDNN picks its kernels by the input's strides,
+    and a channels-last view sends the dilated ASPP convs to a direct
+    kernel several times slower, so the network's speed must not rest on
+    the strides the batch happens to have."""
+    return img.permute(0, 3, 1, 2).contiguous()
+
+
 class SSLEncoder(nn.Module):
     def __init__(self, model_cfg: Optional[dict],
                  pretrain_type: PretrainType = PretrainType.CP2,
@@ -113,12 +122,12 @@ class SSLEncoder(nn.Module):
         Train or eval BatchNorm follows ``self.training``, as the flax
         module's ``train`` flag does.
         """
-        return _nhwc(self.encoder(img.permute(0, 3, 1, 2)))
+        return _nhwc(self.encoder(_nchw(img)))
 
     def _last_stage(self, img: torch.Tensor) -> torch.Tensor:
         if self.backbone_type != BackboneType.DEEPLABV3:
             raise NotImplementedError("backbone features require DEEPLABV3")
-        return self.encoder.extract_feat(img.permute(0, 3, 1, 2))[-1]
+        return self.encoder.extract_feat(_nchw(img))[-1]
 
     def backbone_feats(self, img: torch.Tensor) -> torch.Tensor:
         return _nhwc(self._last_stage(img))

@@ -16,7 +16,7 @@ logits resized to label resolution → mean CE → confusion counts, Adam.
 * **Frozen parameters** (``--linear_evaluation``) get a zero gradient, as
   the JAX step zeroes their gradients before ``add_decayed_weights`` and
   Adam: the optimizer then still moves them by their decay term, as
-  optax does (``ROADMAP.md`` §4).
+  optax does (``ROADMAP.md`` §3, parity rules).
 * **Randomness.**  The train step takes a ``torch.Generator`` on the
   state's device for the heads' dropout.
 

@@ -500,3 +500,42 @@ def replay_jax_eval_params(rng, n: int, *, hflip_p=0.5, vflip_p=0.5, distort_p=0
         vflip=_tensor(_bernoulli(k[:, 1], vflip_p)) if vflip_p > 0 else None,
         distort=(replay_grid(k[:, 2], 5, distort_limit, distort_p) if distort_p > 0
                  else None))
+
+
+def replay_jax_cutpaste(rng, n, hw, jcfg):
+    """The port's ``CutPasteParams`` holding the draws of the JAX
+    ``cutpaste_batch(rng, images, mirrors, jcfg)`` on ``n`` images of
+    ``hw`` (``cp2_tpu/augment/cutpaste.py:42-84,129-150,163``)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from cp2_tpu.augment import cutpaste as JC
+    from cp2_tpu_torch.augment import cutpaste as C
+
+    slots = jcfg.max_num_patches
+    p = jnp.array(C.class_probabilities(jcfg.num_classes))
+
+    def one(key):
+        k_cls, k_n, k_patches = jax.random.split(key, 3)
+        cls = jax.random.choice(k_cls, jcfg.num_classes, p=p)
+        extra = jax.random.randint(k_n, (), 0, jnp.maximum(slots, 1))
+        rows = []
+        for i in range(slots):
+            apply_i = (i == 0) | (i <= extra)
+            geo = JC._sample_patch(jax.random.fold_in(k_patches, i), hw, jcfg,
+                                   cls * apply_i == 2)
+            rows.append((apply_i, *geo))
+        cols = [jnp.stack(c) for c in zip(*rows)]
+        return cls, cols
+
+    cls, cols = jax.vmap(one)(jax.random.split(rng, n))
+    active, src_cy, src_cx, hh, hw_, dst_cy, dst_cx, theta = (np.asarray(c) for c in cols)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+
+    return C.CutPasteParams(
+        target=t(cls).long(), active=t(active), src_cy=t(src_cy), src_cx=t(src_cx),
+        half_h=t(hh), half_w=t(hw_), dst_cy=t(dst_cy), dst_cx=t(dst_cx),
+        cos=t(jnp.cos(theta)), sin=t(jnp.sin(theta)))

@@ -90,3 +90,31 @@ def test_bf16_policy_casts_like_jax(models):
     # different points of a 50-layer network: a normwise 5% bound
     err = np.abs(ours.float().numpy() - ref).max()
     assert err <= 5e-2 * np.abs(ref).max(), err
+
+
+@pytest.mark.parametrize("path", ["dense", "backbone_feats"])
+def test_network_sees_contiguous_nchw_whatever_the_input_strides(path):
+    """``dense`` and ``_last_stage`` (``backbone_feats``, MoCo's, BYOL's and
+    DenseCL's path) hand the network a contiguous NCHW tensor both for a
+    contiguous NHWC batch and for an NHWC view of (N, W, H, C) memory (the
+    augmentation's output layout): a hook on the stem conv sees the same
+    strides, and the outputs are equal.  cuDNN picks its kernels by the
+    input's strides, so the step's speed must not follow the batch's."""
+    torch.manual_seed(0)
+    tm = torch_encoder().eval()
+    x = torch.from_numpy(np.random.RandomState(3).rand(BATCH, 32, 32, 3).astype(np.float32))
+    layouts = {"nhwc": x.contiguous(), "nwhc": x.transpose(1, 2).contiguous().transpose(1, 2)}
+    assert not layouts["nwhc"].is_contiguous()
+    seen, outs = {}, {}
+    for name, img in layouts.items():
+        hook = tm.encoder.backbone.conv1.register_forward_pre_hook(
+            lambda _m, args, name=name: seen.__setitem__(
+                name, (tuple(args[0].shape), args[0].is_contiguous(), args[0].stride())))
+        with torch.no_grad():
+            outs[name] = getattr(tm, path)(img)
+        hook.remove()
+    for name in layouts:
+        shape, contiguous, strides = seen[name]
+        assert shape == (BATCH, 3, 32, 32) and contiguous, (name, seen[name])
+    assert seen["nhwc"][2] == seen["nwhc"][2]
+    torch.testing.assert_close(outs["nhwc"], outs["nwhc"], rtol=0, atol=0)

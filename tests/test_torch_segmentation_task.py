@@ -279,7 +279,7 @@ def _leaf(tree, path):
 
 def test_linear_evaluation_moves_frozen_backbone_as_jax(seg):
     """The backbone's gradient is zeroed, and Adam's decay term alone moves
-    each backbone parameter by about lr (``ROADMAP.md`` §4), on both sides;
+    each backbone parameter by about lr (``ROADMAP.md`` §3), on both sides;
     the head trains."""
     model, params, stats, batch = seg
     mask = jax.tree_util.tree_map_with_path(

@@ -18,9 +18,9 @@ bfloat16 model, SGD), warms it up, then:
    on, which lets cuDNN measure its algorithms once per shape;
 4. times each ASPP branch's convolution alone (forward, and forward +
    backward) on the head's real input, (32, 2048, 14, 14) bfloat16, in
-   both memory layouts: contiguous NCHW, and channels-last (NHWC in
-   memory), the layout the step's activations take because
-   ``SSLEncoder.dense`` permutes its NHWC input to an NCHW view.
+   both memory layouts: contiguous NCHW, which ``SSLEncoder.dense`` hands
+   the network whatever its input's strides, and channels-last (NHWC in
+   memory), what a contiguous NHWC batch becomes when only permuted.
 
 With ``--cli`` the step is the pretrain CLI's quiet step instead: raw
 (32, 256, 256, 3) uint8 ``fg``/``bg0``/``bg1`` frames on the card, the
@@ -31,10 +31,11 @@ step), and the epoch scalars; steps 1 and 2 run on it, then
    batch and its kernels by name, beside the step's device time;
 6. the logged step (``metrics_level`` 1) timed like step 1;
 7. the step of phase 5 on its pre-augmented batch, timed like step 1,
-   once with the images contiguous (N, H, W, C) as there, and once with
-   them laid out as the augmentation leaves them (its last resampling
-   product writes (N, W, H, C) in memory), to tell the layout's share of
-   the time apart from the rest;
+   with the images contiguous (N, H, W, C) as there and with them laid
+   out as the augmentation leaves them ((N, W, H, C) in memory), which
+   must now take the same time; and once with the network fed a
+   channels-last copy of its input instead of the encoder's explicit
+   NCHW one, to keep the record of what the layout costs;
 8. the quiet CLI step timed like step 1 while three host loaders, built
    as the CLI builds them (PIL, ``--num-workers`` 4 and 1), decode
    256x256 PNGs as fast as they can in the background, beside the frames
@@ -201,15 +202,26 @@ def cli_breakdown(state, raw, step_quiet, step_logged, augment_fn, n, step_devic
     contention = decode_contention(state, step_quiet, raw, n)
     layouts = {}
     if layout_experiment:
+        from cp2_tpu_torch.ssl import model as ssl_model
+
         step, batch = plain_step()
-        for name, swap in (("contiguous NHWC", False),
-                           ("as augmented, (N, W, H, C) in memory", True)):
+        explicit = ssl_model._nchw
+        for name, swap, net_layout in (
+                ("contiguous NHWC", False, explicit),
+                ("as augmented, (N, W, H, C) in memory", True, explicit),
+                ("contiguous NHWC, the network fed channels-last", False,
+                 lambda img: img.permute(0, 3, 1, 2).contiguous(
+                     memory_format=torch.channels_last))):
             b = dict(batch)
             if swap:
                 for k in ("img_a", "img_b"):
                     b[k] = b[k].transpose(1, 2).contiguous().transpose(1, 2)
-            state, _ = timed(state, step, b, 3)  # warm-up
-            state, t = timed(state, step, b, n)
+            ssl_model._nchw = net_layout
+            try:
+                state, _ = timed(state, step, b, 3)  # warm-up
+                state, t = timed(state, step, b, n)
+            finally:
+                ssl_model._nchw = explicit
             layouts[name] = t
             print(f"pre-augmented step, images {name}: {['%.2f' % x for x in t]} "
                   f"(median {statistics.median(t):.2f})")
