@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero:
             versions, forward value, dq and dk, float32 and bfloat16
             operands, temperatures 1.0 and 0.2, at the CP2 step's shape
             and eight more (every channel width the kernels are built
-            for, and the U-Net steps' S² = 784 and 49); two runs of each kernel on the same inputs must be
-            bit-equal, and so must forwards run on two streams at once;
-            kernel and plain times at each shape
+            for, and the U-Net steps' S² = 784 and 49); two runs of each
+            kernel on the same inputs must be bit-equal, and so must
+            forwards run on two streams at once, and a forward captured in
+            a CUDA graph and replayed on a second stream while eager
+            forwards run on the first; kernel and plain times at each shape
             (device time of a CUDA graph of back-to-back calls, and the
             eager calls' time by CUDA events) beside two bounds: the
             tensor cores' (3xTF32 for float32 operands) and float32 FMA's;
@@ -105,7 +107,32 @@ Phases, in order; any failure exits non-zero:
             on 4 images; ``export_segmentor`` whole at batch 8 (the loaded
             artifact's class map equals the live module's), a symbolic batch
             checked at batches 1 and 3, slide logits in float32 within 1e-5;
-            latency eager and exported, images/s, artifact bytes, peak memory.
+            latency eager and exported, images/s, artifact bytes, peak memory;
+15. iter    the iteration CLI's path at a narrow width, float32: its SGD
+            step (poly rate, momentum, decay) on ``tests/test_iter_train_cli
+            .py``'s tiny config and a narrow ViT segmentor's step, card
+            against CPU (loss, gradients, parameters and statistics to
+            1e-4); the ``with_cp`` step against the plain step on the card
+            (1e-5); the mmseg pipeline of ``tests/test_data_layer.py`` over
+            16 synthetic PNG pairs (whether cv2 is importable is logged: the
+            port never imports it); no dense-loss launch;
+16. it cli  the iteration CLI (``cp2_tpu_torch.train.iter_train.main``) on
+            ``configs/example_iter_train.py`` (ResNet-50, strides 1,2,2,1,
+            dilations 1,1,1,2, ASPP-512, 2 classes, 512x512, batch 8,
+            float32, SGD with poly rate) on 64 synthetic 576x576 PNG pairs,
+            cut to 40 iterations with eval and checkpoints every 20 (the
+            config says 40000 and 4000; the cut copy is written beside the
+            run); a ``--resume-from`` the iteration-20 checkpoint (step,
+            rate and momentum carried); 10 iterations with
+            ``backbone.with_cp``, whose peak memory must be lower; iteration
+            time (median after 5), images/s, eval seconds, peak memory;
+17. vit     the same CLI with ViT-B/16 (768 wide, 12 layers, 12 heads,
+            ``img_size`` 224) under an FCN head at 512x512 (the position
+            grid resized 14² → 32² each step), batch 8, 20 iterations; and
+            its train step with TF32 matrix products beside it.
+
+Phases 16 and 17 run the CLI with PyTorch's default backends (cuDNN
+convolutions in TF32, matrix products in float32), as a user runs it.
 
 The last lines are one JSON object on the kernels (with their launches on
 every path), the card's name and power limit, and
@@ -282,6 +309,38 @@ def check_streams(dl, q, k, a, b):
     return all(torch.equal(x, want) for x in losses)
 
 
+def check_graph_replay(dl, q, k, a, b):
+    """A forward captured in a CUDA graph on one stream, replayed on a
+    second stream while eager forwards run on the first: each replay and
+    each eager forward gives the serial loss, bit for bit, and the serial
+    loss is the plain version's to the float32 tolerance.  The captured
+    forward has a counter of its own, zeroed inside the graph."""
+    ops = dl.prepare_operands(q, k, a, b, torch.float32)
+    first, second = torch.cuda.Stream(), torch.cuda.Stream()
+    first.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(first):
+        dl.fwd_kernel(*ops, 0.2)  # warm-up, eager
+    torch.cuda.current_stream().wait_stream(first)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=first):
+        captured, _ = dl.fwd_kernel(*ops, 0.2)
+    want, _ = dl.fwd_kernel(*ops, 0.2)
+    ref = dl.dense_pair_loss_reference(q, k, a, b, 0.2)
+    for s in (first, second):
+        s.wait_stream(torch.cuda.current_stream())
+    replays, eager = [], []
+    for _ in range(16):
+        with torch.cuda.stream(second):
+            graph.replay()
+            replays.append(captured.clone())
+        with torch.cuda.stream(first):
+            eager.append(dl.fwd_kernel(*ops, 0.2)[0])
+    torch.cuda.synchronize()
+    rel = abs(want.item() - ref.item()) / abs(ref.item())
+    return (all(torch.equal(x, want) for x in replays + eager)
+            and rel <= F32_TOL["loss_rtol"]), rel
+
+
 def check_kernels(dl):
     """Every shape, temperature and operand type, then the times at each
     shape; returns the step shape's float32 numbers for the JSON line."""
@@ -325,6 +384,12 @@ def check_kernels(dl):
             if not check_streams(dl, q, k, a, b):
                 raise SystemExit("forwards on two streams at once disagree with the serial one")
             log("  forwards on two streams at once: bit-equal to the serial one")
+            ok, rel = check_graph_replay(dl, q, k, a, b)
+            if not ok:
+                raise SystemExit("a forward replayed from a CUDA graph on a second stream, "
+                                 "beside eager forwards, disagrees")
+            log(f"  a captured forward replayed on a second stream beside eager forwards: "
+                f"bit-equal to the serial one, which is {rel:.2e} from the plain version")
         # times, float32 operands, T = 1
         ops = dl.prepare_operands(q, k, a, b, torch.float32)
         _, lse = dl.fwd_kernel(*ops, 1.0)
@@ -2217,6 +2282,370 @@ def check_inference_serving(dl, checkpoint):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the iteration CLI's path at a narrow width, card against CPU
+# ---------------------------------------------------------------------------
+
+# tests/test_iter_train_cli.py's tiny config, dropout off so that both
+# devices compute the same function
+ITER_TINY_MODEL = dict(
+    type="EncoderDecoder",
+    backbone=dict(type="ResNet", depth=18, stem_channels=8, base_channels=8, num_stages=4,
+                  out_indices=(0, 1, 2, 3), dilations=(1, 1, 1, 2), strides=(1, 2, 2, 1),
+                  norm_cfg=dict(type="BN"), contract_dilation=True),
+    decode_head=dict(type="ASPPHead", in_channels=64, in_index=3, channels=16,
+                     dilations=(1, 6), dropout_ratio=0.0, num_classes=2,
+                     norm_cfg=dict(type="BN")),
+)
+NARROW_VIT_MODEL = dict(
+    type="EncoderDecoder",
+    backbone=dict(type="VisionTransformer", img_size=32, patch_size=8, embed_dims=24,
+                  num_layers=3, num_heads=3, out_indices=(2,)),
+    decode_head=dict(type="FCNHead", in_channels=24, in_index=0, channels=16,
+                     dropout_ratio=0.0, num_classes=2, norm_cfg=dict(type="BN")),
+)
+NARROW_TOL = 1e-4  # phase 10's, normwise
+
+
+def iter_sgd_step(model_cfg, device, hw, n=8, seed=0):
+    """One step of the iteration CLI's SGD (poly rate at step 0, momentum
+    0.9, decay 1e-4) on ``model_cfg`` from one seed; the step's loss,
+    gradients, parameters and buffers on the CPU."""
+    from cp2_tpu_torch.models import build_segmentor
+    from cp2_tpu_torch.models.layers import init_flax_like_
+    from cp2_tpu_torch.ops.metrics import ConfusionState
+    from cp2_tpu_torch.train import iter_train
+    from cp2_tpu_torch.train import segmentation_task as task
+
+    img, mask = seg_batch(n, hw, seed)
+    torch.manual_seed(seed)  # the ViT's position embedding draws at build
+    model = init_flax_like_(build_segmentor(model_cfg), torch.Generator().manual_seed(seed))
+    state = task.create_seg_state(model, task.make_sgd(0.01, 0.9, 1e-4), device)
+    task.set_learning_rate(state.optimizer, iter_train.poly_lr(0.01, 40)(state.step))
+    train_step, _, _ = task.make_seg_steps(2, (hw, hw))
+    batch = {"image": torch.from_numpy(img).to(device), "mask": torch.from_numpy(mask).to(device)}
+    state, _, m = train_step(state, batch, torch.Generator(device=device).manual_seed(seed),
+                             ConfusionState.create(2, device))
+    return dict(loss=m["loss"].item(),
+                grads={k: p.grad.detach().cpu() for k, p in state.model.named_parameters()},
+                state={k: v.detach().cpu() for k, v in state.model.state_dict().items()})
+
+
+# an attention key's bias adds the same q·b to every logit of a query's row,
+# which the softmax cancels: its exact gradient is 0 and both devices hold
+# rounding noise there, which is held to the model's largest gradient
+ZERO_GRADIENT = (".attn.key.bias",)
+
+
+def compare_steps(gpu, cpu):
+    """Normwise relative errors of loss, gradients and state (the largest);
+    ``ZERO_GRADIENT`` leaves against the largest gradient of the model."""
+    def zero_grad(k):
+        return k.endswith(ZERO_GRADIENT)
+
+    scale = max(float(v.abs().max()) for v in cpu["grads"].values())
+    err_loss = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    err_grad = max(
+        float((gpu["grads"][k] - v).abs().max()) / scale if zero_grad(k) else max_rel(
+            gpu["grads"][k], v) for k, v in cpu["grads"].items() if v.abs().max() > 0)
+    err_state = max(
+        float((gpu["state"][k] - v).abs().max()) / scale if zero_grad(k) else max_rel(
+            gpu["state"][k].float(), v.float()) for k, v in cpu["state"].items()
+        if v.is_floating_point() and v.abs().max() > 0)
+    return err_loss, err_grad, err_state
+
+
+def check_iter_narrow(dl):
+    """Phase 15; returns the launches by path and the numbers."""
+    import importlib.util as iu
+
+    launches, out = {}, {}
+    # the iteration CLI's SGD step and a narrow ViT segmentor's step
+    for name, cfg, hw in (("iter_step", ITER_TINY_MODEL, 32), ("vit", NARROW_VIT_MODEL, 32)):
+        cpu = iter_sgd_step(cfg, "cpu", hw)
+        torch.cuda.synchronize()
+        dl.reset_launch_counts()
+        gpu = iter_sgd_step(cfg, "cuda", hw)
+        torch.cuda.synchronize()
+        launches[f"phase15_{name}"] = dict(dl.LAUNCHES)
+        err = compare_steps(gpu, cpu)
+        ok = max(err) <= NARROW_TOL and math.isfinite(gpu["loss"])
+        log(f"  {name} SGD step, card vs CPU (float32, batch 8, 32x32): loss rel {err[0]:.2e}, "
+            f"gradients {err[1]:.2e}, parameters and statistics {err[2]:.2e} (normwise, "
+            f"{NARROW_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"phase 15: the {name} step on the card disagrees with the CPU")
+        out[name] = dict(loss_rel=err[0], grad_rel=err[1], state_rel=err[2])
+
+    # with_cp against the plain step, on the card
+    cp_cfg = dict(ITER_TINY_MODEL, backbone=dict(ITER_TINY_MODEL["backbone"], with_cp=True))
+    plain = iter_sgd_step(ITER_TINY_MODEL, "cuda", 32)
+    torch.cuda.synchronize()
+    dl.reset_launch_counts()
+    cp = iter_sgd_step(cp_cfg, "cuda", 32)
+    torch.cuda.synchronize()
+    launches["phase15_with_cp"] = dict(dl.LAUNCHES)
+    err = compare_steps(cp, plain)
+    stats = [k for k in plain["state"] if k.endswith("running_mean")]
+    moved = max(float((plain["state"][k] - cp["state"][k]).abs().max()) for k in stats)
+    ok = max(err) <= 1e-5
+    log(f"  with_cp step against the plain step on the card: loss rel {err[0]:.2e}, gradients "
+        f"{err[1]:.2e}, parameters and running statistics {err[2]:.2e} (normwise, 1e-5: the "
+        f"backward's reductions may order their sums otherwise; a second statistics update "
+        f"would move them by 10 %); running means apart by at most {moved:.2e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 15: the with_cp step disagrees with the plain step")
+    out["with_cp"] = dict(loss_rel=err[0], grad_rel=err[1], state_rel=err[2])
+
+    # the mmseg pipeline of tests/test_data_layer.py over synthetic PNGs
+    from cp2_tpu_torch.data.custom import CustomDataset
+
+    root = os.path.join(ITER_WORK, "mmseg")
+    synthetic_pairs(root, {"train": 16}, (40, 48), 2, seed=7)
+    ann = os.path.join(root, "ann")
+    os.makedirs(ann, exist_ok=True)
+    for name in os.listdir(os.path.join(root, "masks")):
+        from PIL import Image
+
+        m = np.asarray(Image.open(os.path.join(root, "masks", name)))
+        write_png(os.path.join(ann, name), (m > 0).astype(np.uint8))
+    pipeline = [
+        dict(type="LoadImageFromFile"), dict(type="LoadAnnotations"),
+        dict(type="Resize", img_scale=(64, 48), ratio_range=(0.9, 1.1)),
+        dict(type="RandomFlip", prob=0.5), dict(type="PhotoMetricDistortion"),
+        dict(type="Normalize", mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375]),
+        dict(type="Pad", size=(64, 64)), dict(type="DefaultFormatBundle"),
+        dict(type="Collect", keys=["img", "gt_semantic_seg"]),
+    ]
+    dl.reset_launch_counts()
+    ds = CustomDataset(pipeline, img_dir=os.path.join(root, "images"), img_suffix=".png",
+                       ann_dir=ann, seg_map_suffix=".png", classes=("bg", "fg"))
+    t = time.perf_counter()
+    items = [ds[i] for i in range(len(ds))]
+    item_ms = (time.perf_counter() - t) * 1e3 / len(ds)
+    miou = ds.evaluate(list(ds.get_gt_seg_maps()), metric="mIoU")["mIoU"]
+    launches["phase15_mmseg_pipeline"] = dict(dl.LAUNCHES)
+    has_cv2 = iu.find_spec("cv2") is not None
+    ok = (len(items) == 16 and all(x["img"].shape == (64, 64, 3)
+                                   and x["gt_semantic_seg"].shape == (64, 64) for x in items)
+          and abs(miou - 1.0) < 1e-6)
+    log(f"  mmseg pipeline (tests/test_data_layer.py's) over 16 synthetic 40x48 PNG pairs: "
+        f"{item_ms:.1f} ms per item, shapes ok, mIoU of the ground truth {miou:.4f}; cv2 "
+        f"{'importable' if has_cv2 else 'not importable'} here, and not imported by the port "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("phase 15: the mmseg pipeline failed")
+    out["mmseg_pipeline"] = dict(item_ms=item_ms, cv2_importable=has_cv2)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phases 16 and 17: the iteration CLI at full width
+# ---------------------------------------------------------------------------
+
+ITER_WORK = os.path.join("work_dirs", "chip_smoke_iter")
+ITER_PAIRS, ITER_SRC_HW, ITER_HW, ITER_BATCH = 64, (576, 576), 512, 8
+ITER_MAX, ITER_INTERVAL, ITER_CP_ITERS, VIT_ITERS = 40, 20, 10, 20
+VIT_BACKBONE = dict(type="VisionTransformer")  # ViT-B/16 at the JAX defaults
+VIT_HEAD = dict(type="FCNHead", in_channels=768, in_index=0, channels=256, num_classes=2)
+
+
+def iter_config(path, *, max_iters, interval, with_cp=False, vit=False):
+    """``configs/example_iter_train.py`` with the phase's cuts written in:
+    ``max_iters`` and the eval/checkpoint ``interval`` (the config says
+    40000 and 4000), and ``backbone.with_cp`` or the ViT backbone and head."""
+    import cp2_tpu_torch
+
+    src = os.path.join(os.path.dirname(cp2_tpu_torch.__file__), "configs",
+                       "example_iter_train.py")
+    with open(src) as f:
+        text = f.read()
+    for a, b in (("max_iters=40000", f"max_iters={max_iters}"),
+                 ("interval=4000", f"interval={interval}")):
+        if a not in text:
+            raise SystemExit(f"phase 16: {a!r} not in {src}")
+        text = text.replace(a, b)
+    if with_cp:
+        text += "\nmodel['backbone']['with_cp'] = True\n"
+    if vit:
+        text += (f"\nmodel['backbone'] = {VIT_BACKBONE!r}\n"
+                 f"model['decode_head'] = {VIT_HEAD!r}\n")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def run_iter_cli(dl, argv, launches, key):
+    """The CLI's ``main`` on the card, with the default backends (cuDNN
+    convolutions in TF32, matrix products in float32), each train step
+    timed by ``FinetuneClock``; the launch counts of the run under ``key``;
+    the peak memory."""
+    from cp2_tpu_torch.train import iter_train, segmentation_task
+
+    clock = FinetuneClock(segmentation_task.make_seg_steps)
+    segmentation_task.make_seg_steps = clock
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as a user runs it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dl.reset_launch_counts()
+    t = clock.last = time.perf_counter()
+    try:
+        out = iter_train.main(iter_train.get_args(argv))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False  # phase 1's setting
+        segmentation_task.make_seg_steps = clock.make
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    launches[key] = dict(dl.LAUNCHES)
+    times = [row[1] for row in clock.rows if row[0] == "train"]
+    out["iter_times"] = times
+    out["iter_ms_median_after_5"] = statistics.median(times[5:] if len(times) > 5 else times) * 1e3
+    return out
+
+
+def iter_problems(out, iters):
+    problems = []
+    if out["iter"] != iters:
+        problems.append(f"ended at iteration {out['iter']}, not {iters}")
+    if out["loss"] is None or not math.isfinite(out["loss"]):
+        problems.append(f"last loss {out['loss']}")
+    if set(out["final_eval"]) != {"aAcc", "IoU", "Acc", "mIoU"}:
+        problems.append(f"eval keys {sorted(out['final_eval'])}")
+    return problems
+
+
+def check_iter_cli(dl):
+    """Phases 16 and 17; returns the launches by run and the numbers."""
+    from cp2_tpu_torch.train import iter_train
+
+    shutil.rmtree(ITER_WORK, ignore_errors=True)
+    data = os.path.join(ITER_WORK, "data")
+    t = time.perf_counter()
+    synthetic_pairs(data, {"train": ITER_PAIRS}, ITER_SRC_HW, 2, seed=11)
+    log(f"  {ITER_PAIRS} synthetic {ITER_SRC_HW[0]}x{ITER_SRC_HW[1]} PNG pairs in "
+        f"{time.perf_counter() - t:.1f} s")
+    for var, sub in (("TRAIN_IMG_DIR", "images"), ("TRAIN_ANN_DIR", "masks"),
+                     ("VAL_IMG_DIR", "images"), ("VAL_ANN_DIR", "masks")):
+        os.environ[var] = os.path.join(data, sub)
+    os.environ["IMG_SIZE"], os.environ["BATCH"] = str(ITER_HW), str(ITER_BATCH)
+    launches, out = {}, {}
+    cfg = iter_config(os.path.join(ITER_WORK, "example_iter_train_cut.py"),
+                      max_iters=ITER_MAX, interval=ITER_INTERVAL)
+    straight = os.path.join(ITER_WORK, "straight")
+    run = run_iter_cli(dl, [cfg, "--work-dir", straight], launches, "phase16_iter_cli")
+    problems = iter_problems(run, ITER_MAX)
+    ckpts = sorted(int(d) for d in os.listdir(straight) if d.isdigit())
+    if ckpts != [ITER_INTERVAL, ITER_MAX]:
+        problems.append(f"checkpoints {ckpts}")
+    if len(run["eval_seconds"]) != ITER_MAX // ITER_INTERVAL + 1:
+        problems.append(f"{len(run['eval_seconds'])} evals")
+    out["resnet50"] = run
+
+    resumed = os.path.join(ITER_WORK, "resumed")
+    res = run_iter_cli(dl, [cfg, "--work-dir", resumed, "--resume-from",
+                            os.path.join(straight, str(ITER_INTERVAL))],
+                       launches, "phase16_iter_cli_resume")
+    problems += [f"resume: {p}" for p in iter_problems(res, ITER_MAX)]
+    res_ckpts = sorted(int(d) for d in os.listdir(resumed) if d.isdigit())
+    a = torch.load(os.path.join(straight, str(ITER_MAX), "state.pt"), weights_only=True)
+    b = torch.load(os.path.join(resumed, str(ITER_MAX), "state.pt"), weights_only=True)
+    lr_want = iter_train.poly_lr(0.003, ITER_MAX)(ITER_MAX - 1)
+    lr_got = b["optimizer"]["param_groups"][0]["lr"]
+    weight_rel = max(max_rel(b["model"][k].float(), v.float()) for k, v in a["model"].items()
+                     if v.is_floating_point() and v.abs().max() > 0)
+    momentum_rel = max(max_rel(b["optimizer"]["state"][i]["momentum_buffer"],
+                               s["momentum_buffer"])
+                       for i, s in a["optimizer"]["state"].items()
+                       if s["momentum_buffer"].abs().max() > 0)
+    if res_ckpts != [ITER_MAX] or b["step"] != ITER_MAX or abs(lr_got - lr_want) > 1e-9:
+        problems.append(f"resume: checkpoints {res_ckpts}, step {b['step']}, lr {lr_got} "
+                        f"(want {lr_want})")
+    res.update(weights_rel_to_straight=weight_rel, momentum_rel_to_straight=momentum_rel)
+    out["resnet50_resume"] = res
+
+    cp_cfg = iter_config(os.path.join(ITER_WORK, "example_iter_train_cut_with_cp.py"),
+                         max_iters=ITER_CP_ITERS, interval=ITER_MAX, with_cp=True)
+    cp = run_iter_cli(dl, [cp_cfg, "--work-dir", os.path.join(ITER_WORK, "with_cp")],
+                      launches, "phase16_iter_cli_with_cp")
+    problems += [f"with_cp: {p}" for p in iter_problems(cp, ITER_CP_ITERS)]
+    if cp["peak_bytes"] >= run["peak_bytes"]:
+        problems.append(f"with_cp peak {cp['peak_bytes']} not below {run['peak_bytes']}")
+    out["resnet50_with_cp"] = cp
+    for name, r in (("ResNet-50 + ASPP-512", run), (f"  --resume-from {ITER_INTERVAL}", res),
+                    ("  backbone.with_cp", cp)):
+        ms = r["iter_ms_median_after_5"]
+        log(f"  {name}: {r['iter']} iterations, iteration {ms:.1f} ms (median after 5), "
+            f"{ITER_BATCH * 1e3 / ms:.1f} images/s, evals {', '.join('%.2f' % e for e in r['eval_seconds'])}"
+            f" s, peak {r['peak_bytes'] / 2**30:.2f} GiB, last loss {r['loss']:.4f}, "
+            f"mIoU {r['final_eval']['mIoU']:.4f}, wall {r['wall_s']:.1f} s")
+    log(f"  resume: step {b['step']}, lr {lr_got:.6g}; at iteration {ITER_MAX} the weights are "
+        f"{weight_rel:.2e} and the momentum {momentum_rel:.2e} (normwise) from the "
+        f"uninterrupted run's")
+    log(f"  with_cp: peak {cp['peak_bytes'] / 2**30:.2f} GiB against "
+        f"{run['peak_bytes'] / 2**30:.2f} GiB, iteration "
+        f"{cp['iter_ms_median_after_5'] / run['iter_ms_median_after_5']:.2f}x the plain one's; "
+        f"on {gpu_line()}")
+    if problems:
+        raise SystemExit(f"phase 16: {'; '.join(problems)}")
+
+    # phase 17: ViT-B/16 at 512² through the same CLI
+    vit_cfg = iter_config(os.path.join(ITER_WORK, "example_iter_train_vit.py"),
+                          max_iters=VIT_ITERS, interval=ITER_MAX, vit=True)
+    vit = run_iter_cli(dl, [vit_cfg, "--work-dir", os.path.join(ITER_WORK, "vit")],
+                       launches, "phase17_iter_cli_vit")
+    problems = iter_problems(vit, VIT_ITERS)
+    ms = vit["iter_ms_median_after_5"]
+    log(f"  ViT-B/16 + FCN at 512² (position grid 14² -> 32²), batch 8, float32: "
+        f"{vit['iter']} iterations, iteration {ms:.1f} ms (median after 5), "
+        f"{ITER_BATCH * 1e3 / ms:.1f} images/s, peak {vit['peak_bytes'] / 2**30:.2f} GiB, last loss "
+        f"{vit['loss']:.4f}, wall {vit['wall_s']:.1f} s; on {gpu_line()}")
+    vit["tf32_matmul_iter_ms"] = vit_tf32_ms(vit_cfg)
+    log(f"  the same ViT train step with TF32 matrix products: "
+        f"{vit['tf32_matmul_iter_ms']:.1f} ms (median of 5 after 2)")
+    if problems:
+        raise SystemExit(f"phase 17: {'; '.join(problems)}")
+    out["vit_b16"] = vit
+    shutil.rmtree(ITER_WORK, ignore_errors=True)
+    return launches, out
+
+
+def vit_tf32_ms(cfg_path):
+    """The ViT config's train step with ``allow_tf32`` on for matrix
+    products too (random weights, batch 8 at 512²): median of 5 after 2."""
+    from cp2_tpu_torch.config import Config
+    from cp2_tpu_torch.models import build_segmentor
+    from cp2_tpu_torch.ops.metrics import ConfusionState
+    from cp2_tpu_torch.train import segmentation_task as task
+
+    model = build_segmentor(Config.fromfile(cfg_path))
+    state = task.create_seg_state(model, task.make_sgd(0.003, 0.9), "cuda")
+    img, mask = seg_batch(ITER_BATCH, ITER_HW, 0)
+    batch = {"image": torch.from_numpy(img).cuda(), "mask": torch.from_numpy(mask).cuda()}
+    train_step, _, _ = task.make_seg_steps(2, (ITER_HW, ITER_HW))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    times = []
+    try:
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            train_step(state, batch, torch.Generator(device="cuda").manual_seed(0),
+                       ConfusionState.create(2, "cuda"))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    del state, model
+    torch.cuda.empty_cache()
+    return statistics.median(times[2:])
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2302,18 +2731,27 @@ def main() -> int:
     serve_launches, serve = check_inference_serving(
         dl, os.path.join(FT_WORK, "logs", "polyp", ft_cli["polyp"]["best_checkpoint"]))
     shutil.rmtree(FT_WORK, ignore_errors=True)
+
+    # phase 15: the iteration CLI's path, narrow, card against CPU
+    log("iteration CLI path, ViT, with_cp and the mmseg pipeline, narrow:")
+    iter_narrow_launches, iter_narrow = check_iter_narrow(dl)
+
+    # phases 16 and 17: the iteration CLI at full width, ResNet-50 and ViT-B/16
+    log("iteration CLI at full width:")
+    iter_launches, iter_cli = check_iter_cli(dl)
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
                    "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
                    "cli_variants": cli9, "finetune_augment": ft_aug, "finetune_step": ft_step,
                    "finetune_cli": ft_cli, "cutpaste": cutpaste, "mirror_step": mirror_step,
-                   "mirror_cli": mirror_cli, "inference_serving": serve}, f, indent=1)
+                   "mirror_cli": mirror_cli, "inference_serving": serve,
+                   "iter_narrow": iter_narrow, "iter_cli": iter_cli}, f, indent=1)
     log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")
 
     def by_path(name):
         """Launches of one kernel on every path the script drives: the
-        pretrain step's paths, and the finetune, mirror, inference and
-        serving paths, which run no dense-loss kernel."""
+        pretrain step's paths, and the finetune, mirror, inference,
+        serving and iteration-CLI paths, which run no dense-loss kernel."""
         paths = {"phase5_step": step_launches[name], "phase7_cli_CP2": launches[name]}
         paths.update({f"phase8_{case}": n[name] for case, n in variant_launches.items()})
         paths.update({f"phase9_cli_{run}": n[name] for run, n in cli9_launches.items()})
@@ -2322,6 +2760,8 @@ def main() -> int:
         paths.update({f"phase12_mirror_step_{v}": n[name] for v, n in mirror_step_launches.items()})
         paths.update({f"phase13_{run}": n[name] for run, n in mirror_launches.items()})
         paths.update({f"phase14_{run}": n[name] for run, n in serve_launches.items()})
+        paths.update({run: n[name] for run, n in iter_narrow_launches.items()})
+        paths.update({run: n[name] for run, n in iter_launches.items()})
         return paths
 
     kernels = [

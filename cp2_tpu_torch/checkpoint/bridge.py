@@ -8,8 +8,17 @@ by a rename plus a transpose:
 * conv kernel ``(kh, kw, in, out)`` HWIO → ``weight`` OIHW; a dense
   ``kernel`` ``(in, out)`` → ``weight`` ``(out, in)``;
 * ``bias`` → ``bias``;
-* BatchNorm ``scale`` → ``weight``; ``batch_stats`` ``mean`` / ``var`` →
-  ``running_mean`` / ``running_var``.
+* BatchNorm and LayerNorm ``scale`` → ``weight``; ``batch_stats`` ``mean``
+  / ``var`` → ``running_mean`` / ``running_var``;
+* the ViT's attention kernels keep their head axes: ``query`` / ``key`` /
+  ``value`` (embed, heads, head_dim) → ``weight`` (heads, head_dim,
+  embed), ``out`` (heads, head_dim, embed) → ``weight`` (embed, heads,
+  head_dim); their biases as they are;
+* ``pos_embed``, ``cls_token`` and ``Encoding``'s ``codewords`` keep their
+  names and shapes, and so does ``Encoding``'s ``scale``, told from a
+  norm's by its ``codewords`` sibling.
+
+Module names carry over, the segmentor's neck included (``neck_mod``).
 
 ``state_dict_to_flax`` is the inverse; a leaf that maps to nothing raises,
 so a round trip proves every leaf was carried.
@@ -24,6 +33,8 @@ import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_KEPT_LEAVES = ("pos_embed", "cls_token", "codewords")  # same name both sides
+_OUT_PROJECTION = "out"  # the attention module whose kernel ends in embed
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -43,17 +54,25 @@ def _insert(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
-def _kernel_to_torch(kernel: np.ndarray) -> np.ndarray:
+def _kernel_to_torch(kernel: np.ndarray, module: str) -> np.ndarray:
     if kernel.ndim == 4:
         return kernel.transpose(3, 2, 0, 1)  # HWIO → OIHW
+    if kernel.ndim == 3:
+        if module == _OUT_PROJECTION:
+            return kernel.transpose(2, 0, 1)  # (H, D, E) → (E, H, D)
+        return kernel.transpose(1, 2, 0)  # (E, H, D) → (H, D, E)
     if kernel.ndim == 2:
         return kernel.T  # (in, out) → (out, in)
     raise ValueError(f"unexpected kernel rank {kernel.ndim}")
 
 
-def _weight_to_flax(weight: np.ndarray) -> Tuple[str, np.ndarray]:
+def _weight_to_flax(weight: np.ndarray, module: str) -> Tuple[str, np.ndarray]:
     if weight.ndim == 4:
         return "kernel", weight.transpose(2, 3, 1, 0)  # OIHW → HWIO
+    if weight.ndim == 3:
+        if module == _OUT_PROJECTION:
+            return "kernel", weight.transpose(1, 2, 0)  # (E, H, D) → (H, D, E)
+        return "kernel", weight.transpose(2, 0, 1)  # (H, D, E) → (E, H, D)
     if weight.ndim == 2:
         return "kernel", weight.T
     if weight.ndim == 1:
@@ -65,20 +84,27 @@ def flax_to_state_dict(params: Dict[str, Any], batch_stats: Dict[str, Any] | Non
                        ) -> Dict[str, torch.Tensor]:
     """flax ``params`` (+ ``batch_stats``) → a torch ``state_dict``."""
     out: Dict[str, torch.Tensor] = {}
+    flat = list(_flatten(params))
+    # Encoding modules: their ``scale`` is not a norm's
+    encodings = {path[:-1] for path, _ in flat if path[-1] == "codewords"}
 
     def put(path, leaf_map, value):
         leaf = path[-1]
-        if leaf not in leaf_map:
-            raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
         value = np.asarray(value)
+        if leaf in _KEPT_LEAVES or (leaf == "scale" and path[:-1] in encodings):
+            name = leaf
+        elif leaf in leaf_map:
+            name = leaf_map[leaf]
+        else:
+            raise KeyError(f"unmapped flax leaf {'/'.join(path)}")
         if leaf == "kernel":
-            value = _kernel_to_torch(value)
-        key = ".".join(path[:-1] + (leaf_map[leaf],))
+            value = _kernel_to_torch(value, path[-2] if len(path) > 1 else "")
+        key = ".".join(path[:-1] + (name,))
         if key in out:
             raise KeyError(f"two flax leaves map to {key}")
         out[key] = torch.from_numpy(np.ascontiguousarray(value))
 
-    for path, value in _flatten(params):
+    for path, value in flat:
         put(path, _PARAM_LEAVES, value)
     for path, value in _flatten(batch_stats or {}):
         put(path, _STAT_LEAVES, value)
@@ -97,8 +123,10 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]
         value = tensor.detach().cpu().numpy().copy()
         leaf = path[-1]
         if leaf == "weight":
-            name, value = _weight_to_flax(value)
+            name, value = _weight_to_flax(value, path[-2] if len(path) > 1 else "")
             _insert(params, path[:-1] + (name,), np.ascontiguousarray(value))
+        elif leaf in _KEPT_LEAVES or leaf == "scale":
+            _insert(params, path, value)
         elif leaf == "bias":
             _insert(params, path, value)
         elif leaf in stat_names:

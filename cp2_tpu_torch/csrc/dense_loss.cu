@@ -65,8 +65,9 @@
 //   ticket (atomicInc behind __threadfence, which wraps the counter back
 //   to 0 for the next call) sums all N x tiles partials in a fixed order
 //   and writes the mean: one launch, deterministic, no float atomics.
-//   The ticket is the caller's, one per stream (ops/dense_loss.py), so
-//   forwards on different streams do not share it.
+//   The ticket is the caller's, one per stream and one per forward
+//   captured in a CUDA graph (ops/dense_loss.py), so forwards that may run
+//   at the same time do not share it.
 //
 //   Backward.  Two passes as before, each block owning its output rows
 //   (no atomics): dq over query tiles streaming key chunks, dk over key

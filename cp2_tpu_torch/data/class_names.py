@@ -1,0 +1,171 @@
+"""Dataset class-name and palette tables + lookup API.
+
+A copy of ``cp2_tpu/data/class_names.py`` (numpy only), kept in the port
+so that it imports nothing of the JAX package.  The tables are public
+dataset constants (ADE20K / Cityscapes / Pascal VOC label sets and
+colormaps) behind mmseg's ``get_classes`` / ``get_palette`` lookup.
+Datasets without a published palette get mmseg's fallback law: a seed-42
+random palette sized to the class count (``random_palette``).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+CITYSCAPES_CLASSES = (
+    "road", "sidewalk", "building", "wall", "fence", "pole",
+    "traffic light", "traffic sign", "vegetation", "terrain", "sky",
+    "person", "rider", "car", "truck", "bus", "train", "motorcycle",
+    "bicycle",
+)
+
+# note "bed " carries a trailing space in the upstream ADE table; kept
+# verbatim so label files and dashboards line up
+ADE_CLASSES = (
+    "wall", "building", "sky", "floor", "tree", "ceiling", "road", "bed ",
+    "windowpane", "grass", "cabinet", "sidewalk", "person", "earth",
+    "door", "table", "mountain", "plant", "curtain", "chair", "car",
+    "water", "painting", "sofa", "shelf", "house", "sea", "mirror", "rug",
+    "field", "armchair", "seat", "fence", "desk", "rock", "wardrobe",
+    "lamp", "bathtub", "railing", "cushion", "base", "box", "column",
+    "signboard", "chest of drawers", "counter", "sand", "sink",
+    "skyscraper", "fireplace", "refrigerator", "grandstand", "path",
+    "stairs", "runway", "case", "pool table", "pillow", "screen door",
+    "stairway", "river", "bridge", "bookcase", "blind", "coffee table",
+    "toilet", "flower", "book", "hill", "bench", "countertop", "stove",
+    "palm", "kitchen island", "computer", "swivel chair", "boat", "bar",
+    "arcade machine", "hovel", "bus", "towel", "light", "truck", "tower",
+    "chandelier", "awning", "streetlight", "booth", "television receiver",
+    "airplane", "dirt track", "apparel", "pole", "land", "bannister",
+    "escalator", "ottoman", "bottle", "buffet", "poster", "stage", "van",
+    "ship", "fountain", "conveyer belt", "canopy", "washer", "plaything",
+    "swimming pool", "stool", "barrel", "basket", "waterfall", "tent",
+    "bag", "minibike", "cradle", "oven", "ball", "food", "step", "tank",
+    "trade name", "microwave", "pot", "animal", "bicycle", "lake",
+    "dishwasher", "screen", "blanket", "sculpture", "hood", "sconce",
+    "vase", "traffic light", "tray", "ashcan", "fan", "pier", "crt screen",
+    "plate", "monitor", "bulletin board", "shower", "radiator", "glass",
+    "clock", "flag",
+)
+
+VOC_CLASSES = (
+    "background", "aeroplane", "bicycle", "bird", "boat", "bottle", "bus",
+    "car", "cat", "chair", "cow", "diningtable", "dog", "horse",
+    "motorbike", "person", "pottedplant", "sheep", "sofa", "train",
+    "tvmonitor",
+)
+
+# standard 60-class PascalContext label set (mmsegmentation)
+PASCAL_CONTEXT_CLASSES = (
+    "background", "aeroplane", "bag", "bed", "bedclothes", "bench",
+    "bicycle", "bird", "boat", "book", "bottle", "building", "bus",
+    "cabinet", "car", "cat", "ceiling", "chair", "cloth", "computer",
+    "cow", "cup", "curtain", "dog", "door", "fence", "floor", "flower",
+    "food", "grass", "ground", "horse", "keyboard", "light", "motorbike",
+    "mountain", "mouse", "person", "plate", "platform", "pottedplant",
+    "road", "rock", "sheep", "shelves", "sidewalk", "sign", "sky", "snow",
+    "sofa", "table", "track", "train", "tree", "truck", "tvmonitor",
+    "wall", "water", "window", "wood",
+)
+
+CITYSCAPES_PALETTE = (
+    (128, 64, 128), (244, 35, 232), (70, 70, 70), (102, 102, 156),
+    (190, 153, 153), (153, 153, 153), (250, 170, 30), (220, 220, 0),
+    (107, 142, 35), (152, 251, 152), (70, 130, 180), (220, 20, 60),
+    (255, 0, 0), (0, 0, 142), (0, 0, 70), (0, 60, 100), (0, 80, 100),
+    (0, 0, 230), (119, 11, 32),
+)
+
+ADE_PALETTE = (
+    (120, 120, 120), (180, 120, 120), (6, 230, 230), (80, 50, 50),
+    (4, 200, 3), (120, 120, 80), (140, 140, 140), (204, 5, 255),
+    (230, 230, 230), (4, 250, 7), (224, 5, 255), (235, 255, 7),
+    (150, 5, 61), (120, 120, 70), (8, 255, 51), (255, 6, 82),
+    (143, 255, 140), (204, 255, 4), (255, 51, 7), (204, 70, 3),
+    (0, 102, 200), (61, 230, 250), (255, 6, 51), (11, 102, 255),
+    (255, 7, 71), (255, 9, 224), (9, 7, 230), (220, 220, 220),
+    (255, 9, 92), (112, 9, 255), (8, 255, 214), (7, 255, 224),
+    (255, 184, 6), (10, 255, 71), (255, 41, 10), (7, 255, 255),
+    (224, 255, 8), (102, 8, 255), (255, 61, 6), (255, 194, 7),
+    (255, 122, 8), (0, 255, 20), (255, 8, 41), (255, 5, 153),
+    (6, 51, 255), (235, 12, 255), (160, 150, 20), (0, 163, 255),
+    (140, 140, 140), (250, 10, 15), (20, 255, 0), (31, 255, 0),
+    (255, 31, 0), (255, 224, 0), (153, 255, 0), (0, 0, 255),
+    (255, 71, 0), (0, 235, 255), (0, 173, 255), (31, 0, 255),
+    (11, 200, 200), (255, 82, 0), (0, 255, 245), (0, 61, 255),
+    (0, 255, 112), (0, 255, 133), (255, 0, 0), (255, 163, 0),
+    (255, 102, 0), (194, 255, 0), (0, 143, 255), (51, 255, 0),
+    (0, 82, 255), (0, 255, 41), (0, 255, 173), (10, 0, 255),
+    (173, 255, 0), (0, 255, 153), (255, 92, 0), (255, 0, 255),
+    (255, 0, 245), (255, 0, 102), (255, 173, 0), (255, 0, 20),
+    (255, 184, 184), (0, 31, 255), (0, 255, 61), (0, 71, 255),
+    (255, 0, 204), (0, 255, 194), (0, 255, 82), (0, 10, 255),
+    (0, 112, 255), (51, 0, 255), (0, 194, 255), (0, 122, 255),
+    (0, 255, 163), (255, 153, 0), (0, 255, 10), (255, 112, 0),
+    (143, 255, 0), (82, 0, 255), (163, 255, 0), (255, 235, 0),
+    (8, 184, 170), (133, 0, 255), (0, 255, 92), (184, 0, 255),
+    (255, 0, 31), (0, 184, 255), (0, 214, 255), (255, 0, 112),
+    (92, 255, 0), (0, 224, 255), (112, 224, 255), (70, 184, 160),
+    (163, 0, 255), (153, 0, 255), (71, 255, 0), (255, 0, 163),
+    (255, 204, 0), (255, 0, 143), (0, 255, 235), (133, 255, 0),
+    (255, 0, 235), (245, 0, 255), (255, 0, 122), (255, 245, 0),
+    (10, 190, 212), (214, 255, 0), (0, 204, 255), (20, 0, 255),
+    (255, 255, 0), (0, 153, 255), (0, 41, 255), (0, 255, 204),
+    (41, 0, 255), (41, 255, 0), (173, 0, 255), (0, 245, 255),
+    (71, 0, 255), (122, 0, 255), (0, 255, 184), (0, 92, 255),
+    (184, 255, 0), (0, 133, 255), (255, 214, 0), (25, 194, 194),
+    (102, 255, 0), (92, 0, 255),
+)
+
+VOC_PALETTE = (
+    (0, 0, 0), (128, 0, 0), (0, 128, 0), (128, 128, 0), (0, 0, 128),
+    (128, 0, 128), (0, 128, 128), (128, 128, 128), (64, 0, 0),
+    (192, 0, 0), (64, 128, 0), (192, 128, 0), (64, 0, 128),
+    (192, 0, 128), (64, 128, 128), (192, 128, 128), (0, 64, 0),
+    (128, 64, 0), (0, 192, 0), (128, 192, 0), (0, 64, 128),
+)
+
+
+def random_palette(num_classes: int, seed: int = 42) -> List[List[int]]:
+    """mmseg's fallback palette law for datasets without a published one
+    (``mmseg_/datasets/custom.py``: seed-42 uniform colors per class)."""
+    state = np.random.get_state()
+    np.random.seed(seed)
+    palette = np.random.randint(0, 255, size=(num_classes, 3))
+    np.random.set_state(state)
+    return palette.tolist()
+
+
+_TABLES = {
+    "cityscapes": (CITYSCAPES_CLASSES, CITYSCAPES_PALETTE),
+    "ade": (ADE_CLASSES, ADE_PALETTE),
+    "ade20k": (ADE_CLASSES, ADE_PALETTE),
+    "voc": (VOC_CLASSES, VOC_PALETTE),
+    "pascal_voc": (VOC_CLASSES, VOC_PALETTE),
+    "voc12": (VOC_CLASSES, VOC_PALETTE),
+    "voc12aug": (VOC_CLASSES, VOC_PALETTE),
+    "pascal_context": (
+        PASCAL_CONTEXT_CLASSES,
+        tuple(map(tuple, random_palette(len(PASCAL_CONTEXT_CLASSES)))),
+    ),
+}
+
+
+def get_classes(dataset: str) -> List[str]:
+    """Class names of a dataset by alias (mmseg ``get_classes`` parity)."""
+    if not isinstance(dataset, str):
+        raise TypeError(f"dataset must be a str, but got {type(dataset)}")
+    if dataset not in _TABLES:
+        raise ValueError(f"Unrecognized dataset: {dataset}")
+    return list(_TABLES[dataset][0])
+
+
+def get_palette(dataset: str) -> List[List[int]]:
+    """Class palette (RGB rows) of a dataset by alias."""
+    if not isinstance(dataset, str):
+        raise TypeError(f"dataset must be a str, but got {type(dataset)}")
+    if dataset not in _TABLES:
+        raise ValueError(f"Unrecognized dataset: {dataset}")
+    return [list(c) for c in _TABLES[dataset][1]]

@@ -1,4 +1,4 @@
-"""Model zoo: registries, backbones, necks, heads, segmentors (ported so far)."""
+"""Model zoo: registries, backbones, heads, necks, segmentors."""
 
 from cp2_tpu_torch.models.registry import (
     BACKBONES,
@@ -12,11 +12,12 @@ from cp2_tpu_torch.models.registry import (
     build_neck,
     build_segmentor,
 )
-from cp2_tpu_torch.models.resnet import ResNet
+from cp2_tpu_torch.models.resnet import ResNet, frozen_param_labels
 from cp2_tpu_torch.models.heads import ASPPHead, FCNHead
 from cp2_tpu_torch.models.necks import DenseCLNeck, GlobalProjector
 from cp2_tpu_torch.models.unet import UNetEncoderOnly, UNetTruncated
 from cp2_tpu_torch.models.encoder_decoder import EncoderDecoder
+from cp2_tpu_torch.models.vit import VisionTransformer
 
 __all__ = [
     "BACKBONES",
@@ -30,6 +31,7 @@ __all__ = [
     "build_neck",
     "build_segmentor",
     "ResNet",
+    "frozen_param_labels",
     "ASPPHead",
     "FCNHead",
     "DenseCLNeck",
@@ -37,4 +39,5 @@ __all__ = [
     "UNetEncoderOnly",
     "UNetTruncated",
     "EncoderDecoder",
+    "VisionTransformer",
 ]

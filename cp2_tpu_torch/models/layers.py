@@ -19,7 +19,9 @@ Port of ``cp2_tpu/models/layers.py``.  What carries over, and what does not:
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -28,6 +30,24 @@ from torch import nn
 
 FLAX_BN_MOMENTUM = 0.9  # weight of the old running stat (flax convention)
 BN_EPS = 1e-5
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """While a checkpointed block recomputes its forward in the backward
+    (``torch.utils.checkpoint``'s recompute context), train-mode
+    ``BatchNorm`` normalises by the batch statistics as it did the first
+    time but leaves its running statistics alone: they move once per
+    step, as under flax's ``nn.remat``.  Thread-local, since autograd may
+    recompute on a thread of its own."""
+    depth = getattr(_recompute, "depth", 0)
+    _recompute.depth = depth + 1
+    try:
+        yield
+    finally:
+        _recompute.depth = depth
 
 
 class BatchNorm(nn.Module):
@@ -57,6 +77,11 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
         m = FLAX_BN_MOMENTUM
+        if getattr(_recompute, "depth", 0):
+            # the first forward's call on copies of the statistics: the
+            # same result and the same tensors saved for the backward
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True, 1.0 - m, BN_EPS)
         n = x.numel() // x.shape[1]
         # torch updates its running variance with the unbiased batch
         # variance: let it update a copy (which autograd keeps), then set

@@ -9,22 +9,31 @@ per-stage ``strides`` / ``dilations`` (the OS=16 variant is
 
 Module names match the flax tree (``conv1``, ``layer{i}_{b}`` with
 ``conv1/conv2/conv3/norm3/downsample``), so the flax→torch bridge is a
-rename plus a transpose.  ``with_cp`` is not ported: recomputing a block
-under ``torch.utils.checkpoint`` would update its BatchNorm running
-statistics twice.
+rename plus a transpose.
+
+``with_cp`` recomputes each residual block in the backward
+(``torch.utils.checkpoint``, non-reentrant), the counterpart of flax's
+``nn.remat``: activation memory for compute.  The recompute runs under
+``layers.recomputing``, so each BatchNorm's running statistics move once
+per step, as under ``nn.remat``; the step's loss, gradients and
+statistics equal the plain step's.
 
 Forward returns the tuple of stage features selected by ``out_indices``.
+``frozen_param_labels`` labels the parameters that ``frozen_stages``
+freezes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from cp2_tpu_torch.models.layers import ConvModule, conv2d, make_norm
+from cp2_tpu_torch.models.layers import ConvModule, conv2d, make_norm, recomputing
 from cp2_tpu_torch.models.registry import BACKBONES
 
 ARCH_SETTINGS = {
@@ -134,16 +143,12 @@ class ResNet(nn.Module):
         del style, init_cfg  # 'pytorch' style only; checkpoints load via the bridge
         if depth not in ARCH_SETTINGS:
             raise KeyError(f"invalid depth {depth}")
-        if with_cp:
-            raise NotImplementedError(
-                "with_cp: recomputing a block would update its BatchNorm "
-                "running statistics twice"
-            )
         block_kind, stage_blocks = ARCH_SETTINGS[depth]
         stage_blocks = stage_blocks[:num_stages]
         block_cls = Bottleneck if block_kind == "bottleneck" else BasicBlock
         self.out_indices = tuple(out_indices)
         self.deep_stem = deep_stem
+        self.with_cp = with_cp
         self.dtype = dtype
 
         frozen_stem = norm_eval or frozen_stages >= 0
@@ -214,9 +219,42 @@ class ResNet(nn.Module):
             x = self.conv1(x)
         x = F.max_pool2d(x, 3, 2, padding=1)
         outs = []
+        remat = self.with_cp and self.training and torch.is_grad_enabled()
         for i, names in enumerate(self.stages):
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                if remat:
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   context_fn=_recompute_contexts)
+                else:
+                    x = block(x)
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)
+
+
+def _recompute_contexts():
+    """``checkpoint``'s (forward, recompute) contexts."""
+    return contextlib.nullcontext(), recomputing()
+
+
+def frozen_param_labels(model: nn.Module, frozen_stages: int) -> Dict[str, str]:
+    """``{name: "frozen" | "trainable"}`` over a backbone's
+    ``named_parameters``: the stem once ``frozen_stages >= 0`` and
+    ``layer1`` .. ``layer{frozen_stages}``.
+
+    Port of ``cp2_tpu/models/resnet.py::frozen_param_labels`` (the
+    reference's ``_freeze_stages``, resnet.py:532-599): the same rule on
+    the port's names, which the bridge maps onto the flax paths, so the
+    labels agree leaf for leaf.
+    """
+
+    def label(name: str) -> str:
+        if frozen_stages >= 0 and ("conv1" in name.split(".")[0] or name.startswith("stem")):
+            return "frozen"
+        for stage in range(1, frozen_stages + 1):
+            if name.startswith(f"layer{stage}_"):
+                return "frozen"
+        return "trainable"
+
+    return {name: label(name) for name, _ in model.named_parameters()}

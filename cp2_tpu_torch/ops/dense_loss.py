@@ -142,19 +142,21 @@ _tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _ticket(device: torch.device, stream: torch.cuda.Stream) -> torch.Tensor:
-    """The forward's counter for ``stream``: one int32 on the device, zeroed
-    once; each forward's last block leaves it at 0 again.
+    """The forward's counter: one int32 on the device, at 0 when the
+    forward starts; each forward's last block leaves it at 0 again.
 
     The forward's blocks take tickets from it to find the last one, so two
-    forwards that may run at the same time must not share it: streams run
-    their forwards one after another, so each stream gets its own.
+    forwards that may run at the same time must not share it.  An eager
+    stream runs its forwards one after another, so each stream keeps one,
+    zeroed once.  A forward captured in a CUDA graph gets a counter of its
+    own, made inside the capture, so that its zeroing is part of the graph:
+    a replay, on whatever stream, shares no counter with eager forwards.
     """
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((), dtype=torch.int32, device=device)
     key = (device.index, stream.cuda_stream)
     ticket = _tickets.get(key)
     if ticket is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("dense_pair_loss: run one forward on this stream before "
-                               "capturing it in a CUDA graph (its counter is made then)")
         ticket = torch.zeros((), dtype=torch.int32, device=device)
         _tickets[key] = ticket
     return ticket
@@ -223,11 +225,12 @@ def fwd_kernel(q16, k16, a, b, temperature: float):
     loss = torch.empty((), dtype=torch.float32, device=q16.device)
     with torch.cuda.device(q16.device):
         stream = torch.cuda.current_stream(q16.device)
+        ticket = _ticket(q16.device, stream)  # held until the launch is enqueued
         err = lib.cp2_dense_loss_fwd(
             q16.data_ptr(), k16.data_ptr(), a.data_ptr(), b.data_ptr(),
             n, s2, width, int(q16.dtype == torch.bfloat16), 1.0 / temperature,
             lse.data_ptr(), partial.data_ptr(), loss.data_ptr(),
-            _ticket(q16.device, stream).data_ptr(), stream.cuda_stream,
+            ticket.data_ptr(), stream.cuda_stream,
         )
     _check(lib, err, "dense_pair_loss forward")
     LAUNCHES["dense_pair_loss_fwd"] += 1

@@ -2,7 +2,8 @@
 
 Port of ``cp2_tpu/train/segmentation_task.py`` (the reference's Lightning
 ``SegmentationModule``, networks/segment_network.py:48-309): forward →
-logits resized to label resolution → mean CE → confusion counts, Adam.
+logits resized to label resolution → mean CE → confusion counts, Adam
+(SGD for the iteration CLI).
 
 * **Layout.**  ``seg_forward`` hands the segmentor a contiguous NCHW
   tensor, made explicitly from the NHWC batch, so cuDNN's choice of
@@ -51,6 +52,21 @@ def make_adam(learning_rate: float, weight_decay: float):
     gradient before the moments (eps 1e-8, betas 0.9 / 0.999)."""
     return lambda params: torch.optim.Adam(params, lr=learning_rate,
                                            weight_decay=weight_decay)
+
+
+def make_sgd(learning_rate: float, momentum: float = 0.9, weight_decay: float = 0.0):
+    """``params -> SGD``: optax ``chain(add_decayed_weights(wd), sgd(lr,
+    momentum))`` is ``torch.optim.SGD(lr, momentum, weight_decay=wd,
+    dampening=0)``: wd·p joins the gradient before the momentum trace,
+    and the first step's trace is the gradient itself."""
+    return lambda params: torch.optim.SGD(params, lr=learning_rate, momentum=momentum,
+                                          dampening=0.0, weight_decay=weight_decay)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set every parameter group's rate: an optax schedule read per step."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr
 
 
 def create_seg_state(model: torch.nn.Module, tx: Callable, device) -> SegTrainState:

@@ -1,22 +1,21 @@
-"""Training visualizations of the CLIs: IoU histograms, dense-similarity
-heatmaps, example grids, segmentation overlays.
+"""Training visualizations: IoU histograms, dense-similarity heatmaps,
+example grids, correlation-map panels, segmentation overlays.
 
-A copy of ``iou_histogram``, ``dense_similarity_heatmaps``,
-``example_grid`` (the pretrain CLI's) and ``segmentation_overlay_grid``
-(the finetune CLI's ``--visualize_freq``) of
-``cp2_tpu/utils/visualize.py``; the correlation-map panels wait for the
-tools.
-
-Parity with the reference's image artifacts: epoch-end IoU histograms and
-viridis similarity heatmaps (builder.py:1450-1549).  All functions write
-PNGs (and return paths) so they slot into any metric sink; matplotlib is
-imported lazily and headless.
+Port of ``cp2_tpu/utils/visualize.py``: the reference's image artifacts,
+epoch-end IoU histograms and viridis similarity heatmaps
+(builder.py:1450-1549), the correlation-map debug panels
+(tools/correlation_mapping.py:250-339, computed with the port's
+``ops/correlation.py``) and the finetune segmentation overlays
+(finetune.py:86-139).  The figure functions write PNGs (and return paths)
+so they slot into any metric sink; matplotlib is imported lazily and
+headless.  ``show_result`` is numpy and PIL only, and runs where there is
+no matplotlib (the card machine).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -86,6 +85,66 @@ def dense_similarity_heatmaps(
     return save_path
 
 
+def correlation_map_panels(
+    map_a, map_b, mask_a, mask_b, save_dir: str, name: str = ""
+):
+    """Debug panels for correspondence maps + IoU histograms.
+
+    Computes the masked correlation maps with the port's
+    ``get_masked_correlation_map`` and renders the 10-column panel layout
+    of the reference demo (tools/correlation_mapping.py:250-339).  Returns
+    the results dict, as numpy.
+    """
+    import torch
+
+    from cp2_tpu_torch.ops.correlation import get_masked_correlation_map
+
+    results = get_masked_correlation_map(
+        *(torch.as_tensor(np.asarray(x), dtype=torch.float32)
+          for x in (map_a, map_b, mask_a, mask_b)))
+    res = {k: v.numpy() for k, v in results.items()}
+    os.makedirs(save_dir, exist_ok=True)
+    iou_histogram(res["iou"], os.path.join(save_dir, f"{name}_iou_histogram.png"))
+    iou_histogram(
+        res["iou_masked"],
+        os.path.join(save_dir, f"{name}_masked_iou_histogram.png"),
+        title="Histogram of Masked IoU values",
+    )
+
+    plt = _plt()
+    map_a = np.asarray(map_a)
+    map_b = np.asarray(map_b)
+    mask_a = np.asarray(mask_a)
+    mask_b = np.asarray(mask_b)
+    batch = map_a.shape[0]
+    h, w = map_a.shape[1], map_a.shape[2]
+    fig, axes = plt.subplots(batch + 1, 10, figsize=(20, 2 * (batch + 1)), squeeze=False)
+    for i in range(batch):
+        vmin = min(map_a[i].min(), map_b[i].min())
+        vmax = max(map_a[i].max(), map_b[i].max())
+        panels = [
+            (map_a[i], "viridis", f"map_a[{i}]"),
+            (res["corr_map_a"][i].reshape(h, w), "gray", f"corr_map_a[{i}]"),
+            (mask_a[i], "gray", f"mask_a[{i}]"),
+            (mask_a[i] * map_a[i], "viridis", f"mask_a*map_a[{i}]"),
+            (res["corr_map_a_masked"][i].reshape(h, w), "gray", f"corr_a_masked[{i}]"),
+            (map_b[i], "viridis", f"map_b[{i}]"),
+            (res["corr_map_b"][i].reshape(h, w), "gray", f"corr_map_b[{i}]"),
+            (mask_b[i], "gray", f"mask_b[{i}]"),
+            (mask_b[i] * map_b[i], "viridis", f"mask_b*map_b[{i}]"),
+            (res["corr_map_b_masked"][i].reshape(h, w), "gray", f"corr_b_masked[{i}]"),
+        ]
+        for j, (panel, cmap, title) in enumerate(panels):
+            kw = {"vmin": vmin, "vmax": vmax} if cmap == "viridis" and "corr" not in title else {}
+            axes[i, j].imshow(panel, cmap=cmap, **kw)
+            axes[i, j].set_title(title, fontsize=5)
+            axes[i, j].axis("off")
+    fig.tight_layout()
+    fig.savefig(os.path.join(save_dir, f"{name}_maps_visualization.png"), dpi=100)
+    plt.close(fig)
+    return res
+
+
 def example_grid(named_batches, save_path: str):
     """Training-example grid: one column per named image batch.
 
@@ -136,3 +195,49 @@ def segmentation_overlay_grid(
     fig.savefig(save_path, dpi=120)
     plt.close(fig)
     return save_path
+
+
+def show_result(
+    img,
+    seg,
+    *,
+    palette=None,
+    num_classes: Optional[int] = None,
+    opacity: float = 0.5,
+    out_file: Optional[str] = None,
+):
+    """Palette overlay of a segmentation map on an image.
+
+    mmseg ``BaseSegmentor.show_result`` parity
+    (``mmseg_/models/segmentors/base.py:208-268``): each class painted
+    with its palette color, alpha-blended at ``opacity``; RGB in/out.
+    ``img`` may be a path or an (H, W, 3) uint8/float array; ``seg`` an
+    (H, W) integer map.  Falls back to mmseg's seed-42 random palette when
+    none is given.  Returns the blended uint8 array (also written to
+    ``out_file`` when given).
+    """
+    from PIL import Image
+
+    from cp2_tpu_torch.data.class_names import random_palette
+
+    if isinstance(img, (str, os.PathLike)):
+        with open(img, "rb") as f:
+            img = np.asarray(Image.open(f).convert("RGB"))
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+    seg = np.asarray(seg).astype(np.int64)
+    if palette is None:
+        n = num_classes if num_classes is not None else int(seg.max()) + 1
+        palette = random_palette(max(n, 1))
+    palette = np.asarray(palette, dtype=np.uint8)
+    if palette.ndim != 2 or palette.shape[1] != 3:
+        raise ValueError(f"palette must be (K, 3), got {palette.shape}")
+    if not 0 < opacity <= 1.0:
+        raise ValueError(f"opacity must be in (0, 1], got {opacity}")
+    color_seg = palette[np.clip(seg, 0, palette.shape[0] - 1)]
+    out = (img * (1 - opacity) + color_seg * opacity).astype(np.uint8)
+    if out_file is not None:
+        os.makedirs(os.path.dirname(os.path.abspath(out_file)), exist_ok=True)
+        Image.fromarray(out).save(out_file)
+    return out

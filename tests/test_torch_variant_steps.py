@@ -39,12 +39,17 @@ convolution backward corrupts the heap at these 2x2 maps in this CPU
 build.  The encoder now hands it a contiguous NCHW tensor, so that
 backward is not reached (every case here passes at 1, 2 and 4 threads).
 PROPOSED's three steps on ``TINY_MODEL`` sit at the edge of what float32
-resolves: a float64 run of the port puts JAX's float32 trajectory 1.23e-3
-from it in the third step's ``dense_per_sample_lower_negative_scores``,
-and the port's float32 one 6.1e-4 (in either input layout), against a
-bound of 1.33e-3 there.  With oneDNN off the case passed at the parent
-commit with 2 threads and failed with 1 or 4, and after the explicit NCHW
-it fails with 1, 2 and 4; with oneDNN on it passes with each.
+resolves, so its 3-step case holds each float32 trajectory, JAX's and the
+port's, to a float64 run of the port (``_torch_f64_run``: the encoder in
+float64, its float32 casts made float64) instead of to each other, at the
+same tolerance.  Measured in fractions of that bound (rtol 1e-3 with the
+absolute floor), at the third step: JAX's float32 trajectory is 0.93 from
+float64 (``dense_per_sample_lower_negative_scores``; 0.92 in the stem
+kernel, 0.85 in the head's BatchNorm mean), the port's 0.37 to 0.43 with
+1, 2 and 4 threads (0.21 to 0.23 in the stem kernel); the two float32
+trajectories part by 0.54 of the bound from each other, so compared to
+each other they pass or fail by how each rounds.  JAX's distance does not
+depend on the port's threads, and the port's stays under half the bound.
 """
 
 import copy
@@ -273,10 +278,51 @@ def _torch_runs(name, tree, batch):
     return runs
 
 
+# variants whose 3-step float32 trajectories are held to a float64 run of
+# the port rather than to each other (see the module docstring)
+F64_REFERENCE = ("PROPOSED",)
+
+
+def _torch_f64_run(name, tree, batch, n_steps=3):
+    """The port's ``n_steps`` at ``LR[n_steps]`` in float64: the encoder
+    built in float64, the state's parameters, statistics and queues in
+    float64, the float images too, and ``Tensor.float`` (the objectives'
+    casts to float32) made a cast to float64 for the run."""
+    from cp2_tpu_torch.ssl import SSLEncoder
+
+    pt, cfg, bt, _ = VARIANTS[name]
+    bt = bt or JaxBackboneType.DEEPLABV3
+    _, hp = _hps(name)
+    step = make_pretrain_step(hp, jax_dense_output_stride_of(cfg, bt),
+                              jax_backbone_output_stride_of(cfg, bt), metrics_level=1,
+                              epoch_scalars=True)
+    encoder = SSLEncoder(cfg, pretrain_type=PretrainType[pt.name],
+                         backbone_type=BackboneType[bt.name], dim=16, img_hw=(HW, HW),
+                         dtype=torch.float64)
+    state = create_pretrain_state(encoder, make_optimizer("sgd", LR[n_steps]), hp,
+                                  device="cpu")
+    state.model.double()
+    state.ema_model.double()
+    state.queue, state.queue2 = state.queue.double(), state.queue2.double()
+    load_pretrain_state_from_flax(state, tree)
+    inputs = {k: torch.from_numpy(v).double() if v.dtype == np.float32 else torch.from_numpy(v)
+              for k, v in batch.items()}
+    out = []
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(torch.Tensor, "float", lambda self, *a, **kw: self.double())
+        for _ in range(n_steps):
+            state, metrics = step(state, inputs)
+            out.append((pretrain_state_to_flax(state),
+                        {k: v.numpy() for k, v in metrics.items()}))
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs():
-    """``get(name)`` → (start tree, JAX runs, port runs), each run a dict
-    n_steps → [(state tree, metrics) per step]; computed once per variant."""
+    """``get(name)`` → (start tree, JAX runs, port runs, float64 port run),
+    each run a dict n_steps → [(state tree, metrics) per step], the float64
+    one the 3-step run's list for the ``F64_REFERENCE`` variants (else
+    None); computed once per variant."""
     cache = {}
 
     def get(name):
@@ -285,8 +331,9 @@ def runs():
                 narrow_unet_backbones(patch)
                 patch.setattr(nn, "BatchNorm", TwoPassBatchNorm)
                 tree, batch = _initial_tree(name), variant_batch(name)
+                f64 = _torch_f64_run(name, tree, batch) if name in F64_REFERENCE else None
                 cache[name] = (tree, _jax_runs(name, tree, batch),
-                               _torch_runs(name, tree, batch))
+                               _torch_runs(name, tree, batch), f64)
         return cache[name]
 
     return get
@@ -331,17 +378,27 @@ def _updates_close(delta, ref_delta, params, tol, path=""):
 @pytest.mark.parametrize("n_steps", [1, 3])
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_variant_steps_match_jax(runs, name, n_steps):
-    start, jax_runs, torch_runs = runs(name)
+    start, jax_runs, torch_runs, f64_run = runs(name)
+    if n_steps == 3 and f64_run is not None:
+        # both float32 trajectories against the float64 one
+        _assert_run_matches(name, n_steps, start, torch_runs[n_steps], f64_run)
+        _assert_run_matches(name, n_steps, start, jax_runs[n_steps], f64_run)
+    else:
+        _assert_run_matches(name, n_steps, start, torch_runs[n_steps], jax_runs[n_steps])
+
+
+def _assert_run_matches(name, n_steps, start, run, ref_run):
+    """``run``'s metrics and final state against ``ref_run``'s at
+    ``TOL[n_steps]``."""
     tol = TOL[n_steps]
-    for i, ((state, metrics), (ref_state, ref_metrics)) in enumerate(
-            zip(torch_runs[n_steps], jax_runs[n_steps])):
+    for i, ((state, metrics), (ref_state, ref_metrics)) in enumerate(zip(run, ref_run)):
         assert np.isfinite(metrics["loss"])
         assert set(metrics) == set(ref_metrics), (i, set(metrics) ^ set(ref_metrics))
         for key, value in ref_metrics.items():
             scale = 1.0 if "scores" in key else float(np.abs(value).max())
             np.testing.assert_allclose(np.asarray(metrics[key], np.float64), value,
                                        rtol=tol, atol=tol * scale, err_msg=f"{key} step {i}")
-    state, ref_state = torch_runs[n_steps][-1][0], jax_runs[n_steps][-1][0]
+    state, ref_state = run[-1][0], ref_run[-1][0]
     for field in ("params", "batch_stats", "ema_params", "ema_batch_stats"):
         assert_trees_close(state[field], ref_state[field], tol, field)
     if n_steps == 1:
