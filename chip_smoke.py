@@ -131,8 +131,37 @@ Phases, in order; any failure exits non-zero:
             grid resized 14² → 32² each step), batch 8, 20 iterations; and
             its train step with TF32 matrix products beside it.
 
+18. dist    more than one process.  (a) ``initialize(backend="nccl")`` with
+            a world of one: two full-width CP2 steps through the
+            distributed code path against the same two steps without a
+            process group on the same batch and weights (no further apart
+            than two runs without a group are).  (b) Two processes sharing
+            the card, started with torchrun's environment, each calling
+            ``initialize(backend="gloo")`` and running on ``cuda:0``: NCCL
+            refuses two ranks on one device (a probe logs its refusal), gloo
+            reduces CUDA tensors through the host.  A narrow float32 CP2 step
+            in two ranks against the one-process card step on the same
+            global batch of 4 (loss, queue and weights 1e-5 normwise; the
+            update 1e-4, since a tensor that starts at zero holds only it;
+            states, BatchNorm statistics, queues and pointers equal across
+            the ranks; one launch of each dense-loss kernel per rank) and
+            gloo's all-reduce times; the pretrain CLI at full width
+            (``config_pretrain.py``, global batch 32, 224x224, bfloat16, 96
+            synthetic PNGs, 6 steps and a 1-step ``--resume``): step times,
+            images/s and peak memory per rank, six launches of each kernel
+            per rank; ``--fast_dev_run`` of the finetune CLI (polyp 352x352,
+            batch 16: rank 0's best checkpoint restored by both ranks) and of
+            the mirror CLI, and 4 iterations of the iteration CLI, each rank
+            ending with the other's results.  A rank that fails fails the
+            phase.
+
 Phases 16 and 17 run the CLI with PyTorch's default backends (cuDNN
 convolutions in TF32, matrix products in float32), as a user runs it.
+
+``python3 chip_smoke.py --compare <dir>`` times phase 5's step and phases
+16-17's runs of the package in ``<dir>`` (another commit, unpacked) and of
+this one in turns (parent, change, change, parent), each in a process of
+its own, and writes ``chiprun_out/compare.json``.
 
 The last lines are one JSON object on the kernels (with their launches on
 every path), the card's name and power limit, and
@@ -2646,6 +2675,480 @@ def vit_tf32_ms(cfg_path):
     return statistics.median(times[2:])
 
 
+# ---------------------------------------------------------------------------
+# phase 18: more than one process
+# ---------------------------------------------------------------------------
+
+DIST_WORK = os.path.join("work_dirs", "chip_smoke_dist")
+DIST_RANK, NCCL_PROBE = "--dist-rank", "--nccl-probe"  # this script's modes for its ranks
+DIST_WORLD = 2
+DIST_NARROW_BATCH = 4  # two rows a rank, 64x64
+DIST_TOL = 1e-5
+# a tensor that starts at zero (biases, zero-initialised residual scales)
+# holds one update after the step, lr times its gradient: a gradient's
+# tolerance there, phase 4's
+DIST_UPDATE_TOL = 1e-4
+DIST_CLI_BATCH, DIST_CLI_FRAMES = 32, 96  # 3 steps an epoch on each rank's 48 frames
+DIST_FT_SPLITS = {"train": 32, "val": 8, "test": 8}  # batch 16: 2 steps of 8 rows a rank
+DIST_MIRROR_SPLITS = {"train": 2 * MIRROR_BATCH, "val": MIRROR_BATCH}
+DIST_ITER_PAIRS, DIST_ITER_MAX = 16, 4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(mode, workdir, timeout):
+    """``python3 chip_smoke.py <mode> <workdir>`` in ``DIST_WORLD`` processes
+    with torchrun's environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT``); waits for all of them, stops the
+    others a few seconds after one fails, and stops any still running at
+    ``timeout``.  Returns each rank's exit code and output."""
+    port = free_port()
+    procs, outs = [], []
+    for rank in range(DIST_WORLD):
+        env = dict(os.environ, WORLD_SIZE=str(DIST_WORLD), RANK=str(rank),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        outs.append(open(os.path.join(workdir, f"{mode.strip('-')}_rank{rank}.log"), "w+b"))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, workdir],
+                                      env=env, stdout=outs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                deadline = min(deadline, time.monotonic() + 10)
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    logs = []
+    for f in outs:
+        f.seek(0)
+        logs.append(f.read().decode(errors="replace"))
+        f.close()
+    return [p.returncode for p in procs], logs
+
+
+def nccl_probe(workdir) -> int:
+    """A rank of the probe: NCCL on ``cuda:0`` for both ranks, one
+    all-reduce."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl")
+    x = torch.ones(4, device="cuda:0")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print(f"nccl all_reduce on one card: {x.tolist()}", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def narrow_dist_step(device, rows):
+    """One float32 CP2 step of phase 4's narrow model from seed 0 on
+    ``rows`` of a pre-augmented batch of ``DIST_NARROW_BATCH``; the loss,
+    the model's state before and after, the queue and its pointer, on the
+    CPU."""
+    from cp2_tpu_torch.ssl import SSLEncoder, SSLHyperParams, create_pretrain_state
+    from cp2_tpu_torch.ssl import output_stride_of
+    from cp2_tpu_torch.ssl.train_step import make_optimizer, make_pretrain_step
+    from cp2_tpu_torch.types import PretrainType
+
+    hp = SSLHyperParams.for_variant(PretrainType.CP2, dim=16, queue_len=64)
+    state = create_pretrain_state(SSLEncoder(SMALL_MODEL, dim=16), make_optimizer("sgd", 1e-3),
+                                  hp, seed=0, device=device)
+    step = make_pretrain_step(hp, output_stride_of(SMALL_MODEL))
+    batch = pre_augmented_batch(DIST_NARROW_BATCH, 64, 0, "cpu")
+    start = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    state, metrics = step(state, {k: v[rows].to(device) for k, v in batch.items()})
+    return {"loss": metrics["loss"].item(), "start": start,
+            "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+            "queue": state.queue.cpu(), "queue_ptr": state.queue_ptr}
+
+
+def allreduce_ms(n_grads, device):
+    """What gloo's all-reduces of CUDA tensors cost on this machine, in
+    lockstep on every rank: the step's flat gradient buffer (median of 3)
+    and a BatchNorm's (W, 3, 512) statistics (median of 50)."""
+    import torch.distributed as dist
+
+    def timed(x, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    return {"gradients": timed(torch.zeros(n_grads, device=device), 3),
+            "gradient_values": n_grads,
+            "batchnorm": timed(torch.zeros(DIST_WORLD, 3, 512, device=device), 50)}
+
+
+def dist_rank(workdir) -> int:
+    """One rank of phase 18(b): gloo, ``device="cuda:0"`` (the two ranks
+    share the card); the narrow step, the pretrain CLI at full width with a
+    resume, the finetune and mirror CLIs' ``--fast_dev_run`` and 4
+    iterations of the iteration CLI.  Writes ``rank<r>.json`` (numbers and
+    launch counts) and ``narrow_rank<r>.pt``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    from cp2_tpu_torch import parallel
+    from cp2_tpu_torch.ops import dense_loss as dl
+    from cp2_tpu_torch.train import finetune, iter_train, mirror_pretrain, pretrain
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 1's settings
+    torch.backends.cudnn.allow_tf32 = False
+    rank, device = int(os.environ["RANK"]), "cuda:0"
+    parallel.initialize(backend="gloo")
+    log(f"rank {rank} of {dist.get_world_size()}: backend {dist.get_backend()}, "
+        f"device {device}")
+    out = {"rank": rank, "backend": dist.get_backend(), "device": device, "launches": {}}
+
+    def launched(key):
+        out["launches"][key] = dict(dl.LAUNCHES)
+        dl.reset_launch_counts()
+
+    n = DIST_NARROW_BATCH // DIST_WORLD
+    dl.reset_launch_counts()
+    torch.save(narrow_dist_step(device, slice(rank * n, (rank + 1) * n)),
+               os.path.join(workdir, f"narrow_rank{rank}.pt"))
+    launched("narrow")
+
+    # the pretrain CLI at full width: 6 steps, then a 1-step --resume
+    logs = os.path.join(workdir, "logs")
+    common = ["--run_id", "cp2", "--log_dir", logs, "--data_dirs", os.path.join(workdir, "frames"),
+              "-b", str(DIST_CLI_BATCH), "--img_height", "224", "--img_width", "224",
+              "--metrics_level", "1", "--scalar-freq", "3", "--print-freq", "3",
+              "--visual-freq", "0"]
+    clock = StepClock(pretrain.make_pretrain_step)
+    pretrain.make_pretrain_step = clock
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        clock.last = time.perf_counter()
+        state = pretrain.main(pretrain.get_args(common + ["--epochs", "2"]), device=device)
+        launched("cli")
+        out["cli"] = {"step": state.step, "queue_ptr": state.queue_ptr,
+                      "peak_bytes": torch.cuda.max_memory_allocated(), "rows": clock.rows}
+        del state
+        clock.rows = []
+        clock.last = time.perf_counter()
+        state = pretrain.main(pretrain.get_args(
+            common + ["--epochs", "3", "--max_steps", "6",
+                      "--resume", os.path.join(logs, "cp2")]), device=device)
+        launched("cli_resume")
+        out["cli_resume"] = {"step": state.step, "queue_ptr": state.queue_ptr,
+                             "rows": clock.rows}
+        out["allreduce_ms"] = allreduce_ms(sum(p.numel() for p in state.model.parameters()),
+                                           device)
+        del state
+    finally:
+        pretrain.make_pretrain_step = clock.make
+
+    ft = os.path.join(workdir, "polyp")
+    t = time.perf_counter()
+    out["finetune"] = finetune.main(finetune.get_args([
+        "--run_id", "polyp", "--log_dir", logs, "--img_dirs", os.path.join(ft, "images"),
+        "--mask_dirs", os.path.join(ft, "masks"), "--pretrain_type", "NONE",
+        "--visualize_freq", "0", "--fast_dev_run"]), device=device)
+    out["finetune_s"] = time.perf_counter() - t
+    launched("finetune")
+
+    t = time.perf_counter()
+    state = mirror_pretrain.main(mirror_pretrain.get_args([
+        "--run_id", "mirror", "--log_dir", logs, "--data_dirs",
+        os.path.join(workdir, "mirror_frames"), "--fast_dev_run"]), device=device)
+    out["mirror"] = {"step": state.step, "mirror_s": time.perf_counter() - t}
+    del state
+    launched("mirror")
+
+    t = time.perf_counter()
+    res = iter_train.main(iter_train.get_args([
+        os.path.join(workdir, "example_iter_train_cut.py"), "--work-dir",
+        os.path.join(workdir, "iter")]), device=device)
+    out["iter"] = {"iter": res["iter"], "loss": res["loss"], "mIoU": res["final_eval"]["mIoU"],
+                   "iter_s": time.perf_counter() - t}
+    launched("iter")
+    parallel.shutdown()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def check_dist_nccl_world1(dl):
+    """Phase 18(a): two full-width CP2 steps through the distributed code
+    path with ``initialize(backend="nccl")`` and a world of one, against
+    the same two steps of phase 5's step without a process group, on the
+    same batch and weights, with cuDNN's deterministic algorithms; the
+    difference of two runs without a group beside it (the run in a group
+    may differ by no more: bit-equal where the two runs are)."""
+    from cp2_tpu_torch import parallel
+    from cp2_tpu_torch.config import Config
+    from cp2_tpu_torch.ssl import SSLEncoder, SSLHyperParams, create_pretrain_state
+    from cp2_tpu_torch.ssl import output_stride_of
+    from cp2_tpu_torch.ssl.train_step import make_optimizer, make_pretrain_step
+    from cp2_tpu_torch.types import PretrainType
+    import cp2_tpu_torch
+
+    cfg = Config.fromfile(os.path.join(os.path.dirname(cp2_tpu_torch.__file__), "configs",
+                                       "config_pretrain.py"))
+    model_cfg = dict(cfg.model)
+    hp = SSLHyperParams.for_variant(PretrainType.CP2)
+    batch = pre_augmented_batch(32, 224, 0, "cuda")
+
+    def two_steps():
+        state = create_pretrain_state(
+            SSLEncoder(model_cfg, pretrain_type=PretrainType.CP2, dim=128, dtype=torch.bfloat16),
+            make_optimizer("sgd", 1e-3), hp, seed=0)
+        step = make_pretrain_step(hp, output_stride_of(model_cfg))
+        losses = [step(state, batch)[1]["loss"].item() for _ in range(2)]
+        flat = torch.cat([p.detach().float().reshape(-1) for p in state.model.parameters()]
+                         + [b.float().reshape(-1) for b in state.model.buffers()]
+                         + [state.queue.reshape(-1)])
+        result = (losses, flat, state.queue_ptr)
+        del state
+        torch.cuda.empty_cache()
+        return result
+
+    # cuDNN's deterministic algorithms for this comparison: with its
+    # default choices two runs of the same bf16 step part by 1e-4
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    plain = two_steps()
+    again = two_steps()
+    saved = {k: os.environ.get(k) for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                                            "MASTER_PORT")}
+    os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    try:
+        parallel.initialize(backend="nccl")
+        import torch.distributed as dist
+
+        backend, world = dist.get_backend(), dist.get_world_size()
+        dl.reset_launch_counts()
+        dist_run = two_steps()
+        launches = dict(dl.LAUNCHES)
+    finally:
+        parallel.shutdown()
+        torch.backends.cudnn.deterministic = False
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def diff(a, b):
+        return (max(abs(x - y) for x, y in zip(a[0], b[0])),
+                float((a[1] - b[1]).abs().max()), a[2] == b[2])
+
+    d_dist, d_again = diff(dist_run, plain), diff(again, plain)
+    log(f"  18(a) {backend}, world {world}: losses {['%.6f' % l for l in dist_run[0]]}; "
+        f"against the steps without a group: loss diff {d_dist[0]:.3e}, state and queue max "
+        f"abs diff {d_dist[1]:.3e}, queue_ptr equal {d_dist[2]}; two runs without a group "
+        f"differ by {d_again[0]:.3e} / {d_again[1]:.3e}; launches {launches}")
+    if not (d_dist[2] and d_dist[0] <= d_again[0] and d_dist[1] <= d_again[1]):
+        raise SystemExit("phase 18(a): the step in a world of one differs from the step "
+                         "without a process group by more than two runs differ")
+    if launches != {"dense_pair_loss_fwd": 2, "dense_pair_loss_bwd": 2}:
+        raise SystemExit(f"phase 18(a): launches {launches} in 2 steps")
+    return launches, dict(backend=backend, world=world, losses=dist_run[0],
+                          loss_diff=d_dist[0], state_max_abs_diff=d_dist[1],
+                          plain_rerun_loss_diff=d_again[0], plain_rerun_state_diff=d_again[1])
+
+
+def check_dist():
+    """Phase 18; returns the launches by run and the numbers."""
+    from cp2_tpu_torch.ops import dense_loss as dl
+
+    launches, numbers = {}, {}
+    launches["phase18a_nccl_world1"], numbers["nccl_world1"] = check_dist_nccl_world1(dl)
+
+    shutil.rmtree(DIST_WORK, ignore_errors=True)
+    os.makedirs(DIST_WORK)
+    work = os.path.abspath(DIST_WORK)
+    codes, outs = run_ranks(NCCL_PROBE, work, timeout=90)
+    refusal = [line for out in outs for line in out.splitlines()
+               if "Duplicate GPU" in line or "ncclInvalidUsage" in line][:1]
+    numbers["nccl_two_ranks_one_card"] = {"exit_codes": codes, "refusal": refusal}
+    log(f"  NCCL with two ranks on one card: exit codes {codes}"
+        f"{'; ' + refusal[0].strip()[:200] if refusal else ''}")
+
+    t = time.perf_counter()
+    synthetic_frames(os.path.join(work, "frames"), DIST_CLI_FRAMES)
+    synthetic_pairs(os.path.join(work, "polyp"), DIST_FT_SPLITS, (384, 448), 2, seed=21)
+    csv_listed_frames(os.path.join(work, "mirror_frames"), DIST_MIRROR_SPLITS, (544, 544),
+                      seed=22)
+    synthetic_pairs(os.path.join(work, "iter_data"), {"train": DIST_ITER_PAIRS},
+                    ITER_SRC_HW, 2, seed=23)
+    for var, sub in (("TRAIN_IMG_DIR", "images"), ("TRAIN_ANN_DIR", "masks"),
+                     ("VAL_IMG_DIR", "images"), ("VAL_ANN_DIR", "masks")):
+        os.environ[var] = os.path.join(work, "iter_data", sub)
+    os.environ["IMG_SIZE"], os.environ["BATCH"] = str(ITER_HW), str(ITER_BATCH)
+    iter_config(os.path.join(work, "example_iter_train_cut.py"), max_iters=DIST_ITER_MAX,
+                interval=DIST_ITER_MAX // 2)
+    log(f"  data for the ranks in {time.perf_counter() - t:.1f} s")
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    codes, outs = run_ranks(DIST_RANK, work, timeout=420)
+    wall = time.perf_counter() - t
+    for rank, out in enumerate(outs):
+        with open(os.path.join("chiprun_out", f"chip_smoke_dist_rank{rank}.log"), "w") as f:
+            f.write(out)
+    if codes != [0] * DIST_WORLD:
+        tails = "\n".join(f"--- rank {r} (exit {c}) ---\n{o[-3000:]}"
+                          for r, (c, o) in enumerate(zip(codes, outs)))
+        raise SystemExit(f"phase 18(b): ranks exited {codes}\n{tails}")
+    ranks = []
+    for rank in range(DIST_WORLD):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"  18(b) {DIST_WORLD} ranks in {wall:.1f} s: backend {ranks[0]['backend']}, device "
+        f"{ranks[0]['device']} for both (gloo: NCCL refuses two ranks on one card)")
+    problems = []
+
+    # the narrow step against one process on the global batch
+    ref = narrow_dist_step("cuda", slice(None))
+    got = [torch.load(os.path.join(work, f"narrow_rank{r}.pt"), weights_only=False)
+           for r in range(DIST_WORLD)]
+    loss = sum(g["loss"] for g in got) / DIST_WORLD  # each rank's loss is its rows' mean
+    err_loss = abs(loss - ref["loss"]) / abs(ref["loss"])
+    moved = [k for k, v in ref["model"].items() if v.is_floating_point() and v.abs().max() > 0]
+    err_state = max(max_rel(got[0]["model"][k], ref["model"][k]) for k in moved
+                    if ref["start"][k].abs().max() > 0)
+    err_update = max(max_rel(got[0]["model"][k] - ref["start"][k],
+                             ref["model"][k] - ref["start"][k]) for k in moved
+                     if (ref["model"][k] != ref["start"][k]).any())
+    err_queue = max_rel(got[0]["queue"], ref["queue"])
+    same = (all(torch.equal(got[1]["model"][k], v) for k, v in got[0]["model"].items())
+            and torch.equal(got[1]["queue"], got[0]["queue"])
+            and got[0]["queue_ptr"] == got[1]["queue_ptr"] == ref["queue_ptr"])
+    log(f"  narrow float32 step, {DIST_WORLD} ranks vs one process on the global batch of "
+        f"{DIST_NARROW_BATCH}: loss rel {err_loss:.2e}, state max rel {err_state:.2e}, queue "
+        f"max rel {err_queue:.2e} (tolerance {DIST_TOL:g}); update max rel {err_update:.2e} "
+        f"({DIST_UPDATE_TOL:g}: tensors that start at zero hold only it); ranks' states, "
+        f"BatchNorm statistics, queues and pointers equal: {same}")
+    if max(err_loss, err_state, err_queue) > DIST_TOL or err_update > DIST_UPDATE_TOL or \
+            not same:
+        problems.append("the narrow step in two ranks disagrees with one process")
+
+    want = {"narrow": 1, "cli": 6, "cli_resume": 1, "finetune": 0, "mirror": 0, "iter": 0}
+    for r in ranks:
+        for key, count in want.items():
+            if r["launches"][key] != {"dense_pair_loss_fwd": count, "dense_pair_loss_bwd": count}:
+                problems.append(f"rank {r['rank']} {key}: launches {r['launches'][key]}")
+        cli, res = r["cli"], r["cli_resume"]
+        if (cli["step"], cli["queue_ptr"]) != (6, 6 * DIST_CLI_BATCH) or \
+                (res["step"], res["queue_ptr"]) != (7, 7 * DIST_CLI_BATCH):
+            problems.append(f"rank {r['rank']} CLI: {cli['step']}, {cli['queue_ptr']}; "
+                            f"resume {res['step']}, {res['queue_ptr']}")
+        losses = [row[-1] for row in cli["rows"] + res["rows"]]
+        if not all(math.isfinite(x) for x in losses):
+            problems.append(f"rank {r['rank']} CLI losses {losses}")
+        quiet = [row[1] * 1e3 for row in cli["rows"][3:] if row[0] == 0]
+        gaps = [row[2] for row in cli["rows"][3:]]
+        r["numbers"] = dict(quiet_step_ms_median=statistics.median(quiet) if quiet else None,
+                            images_per_s=DIST_CLI_BATCH * len(gaps) / sum(gaps),
+                            peak_bytes=cli["peak_bytes"])
+        log(f"  rank {r['rank']} pretrain CLI (global batch {DIST_CLI_BATCH}, 224x224, bf16): "
+            f"step call ms {['%.1f' % (row[1] * 1e3) for row in cli['rows']]}; epoch 1 quiet "
+            f"step median {r['numbers']['quiet_step_ms_median']} ms, "
+            f"{r['numbers']['images_per_s']:.1f} global images/s, peak memory "
+            f"{cli['peak_bytes'] / 2**30:.2f} GiB; resume to step {res['step']}, queue_ptr "
+            f"{res['queue_ptr']}; launches {r['launches']['cli']}; gloo all-reduce of the "
+            f"{r['allreduce_ms']['gradient_values']} gradients "
+            f"{r['allreduce_ms']['gradients']:.1f} ms, of a BatchNorm's statistics "
+            f"{r['allreduce_ms']['batchnorm']:.3f} ms; on {gpu_line()}")
+        if not all(math.isfinite(v) for v in r["finetune"].values()):
+            problems.append(f"rank {r['rank']} finetune metrics {r['finetune']}")
+    if ranks[0]["finetune"] != ranks[1]["finetune"]:
+        problems.append("the ranks' finetune test metrics differ")
+    best = [d for d in os.listdir(os.path.join(work, "logs", "polyp")) if d.isdigit()]
+    if len(best) != 1:
+        problems.append(f"finetune checkpoints {best}")
+    for key in ("mirror", "iter"):
+        if {k: v for k, v in ranks[0][key].items() if not k.endswith("_s")} != \
+                {k: v for k, v in ranks[1][key].items() if not k.endswith("_s")}:
+            problems.append(f"the ranks' {key} results differ: {ranks[0][key]} {ranks[1][key]}")
+    if ranks[0]["mirror"]["step"] != 2 or ranks[0]["iter"]["iter"] != DIST_ITER_MAX:
+        problems.append(f"mirror {ranks[0]['mirror']}, iter {ranks[0]['iter']}")
+    log(f"  finetune --fast_dev_run (polyp 352x352, batch 16, bf16): test {ranks[0]['finetune']} "
+        f"on both ranks, best checkpoint {best}; mirror --fast_dev_run step "
+        f"{ranks[0]['mirror']['step']}; iteration CLI {ranks[0]['iter']}")
+    if problems:
+        raise SystemExit(f"phase 18: {'; '.join(problems)}")
+    for r in ranks:
+        for key, count in r["launches"].items():
+            launches[f"phase18_{key}_rank{r['rank']}"] = count
+        numbers[f"rank{r['rank']}"] = {k: v for k, v in r.items() if k != "launches"}
+    numbers["ranks_wall_s"] = wall
+    numbers["narrow"] = dict(loss_rel=err_loss, state_max_rel=err_state, queue_max_rel=err_queue,
+                             update_max_rel=err_update)
+    shutil.rmtree(DIST_WORK, ignore_errors=True)
+    return launches, numbers
+
+
+COMPARE, COMPARE_ONE = "--compare", "--compare-one"
+
+
+def compare_one() -> int:
+    """In the tree that is the working directory (its ``cp2_tpu_torch``):
+    phase 5's step and phases 16-17's runs; one ``COMPARE {json}`` line."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, os.getcwd())
+    from cp2_tpu_torch.ops import cuda_build
+    from cp2_tpu_torch.ops import dense_loss as dl
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 1's settings
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs("chiprun_out", exist_ok=True)
+    cuda_build.build(["dense_loss"])
+    _, step = full_step(dl)
+    _, runs = check_iter_cli(dl)
+    log("COMPARE " + json.dumps({"step_ms": step["median_step_ms"], **{
+        f"{k}_iter_ms": v["iter_ms_median_after_5"] for k, v in runs.items()
+        if isinstance(v, dict) and "iter_ms_median_after_5" in v}}))
+    return 0
+
+
+def compare_trees(parent) -> int:
+    """Phase 5's step and phases 16-17 of the package in ``parent`` (an
+    unpacked tree of another commit) and of this one, in turns on one
+    card: parent, this, this, parent; each in a process of its own, by
+    this script's code."""
+    if not torch.cuda.is_available():
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    log(gpu_line())
+    rows = []
+    for label, root in (("parent", parent), ("change", here), ("change", here),
+                        ("parent", parent)):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), COMPARE_ONE],
+                             cwd=os.path.abspath(root), capture_output=True, text=True)
+        found = [line for line in out.stdout.splitlines() if line.startswith("COMPARE ")]
+        if out.returncode or not found:
+            log(f"{label}: exit {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+            return 1
+        rows.append((label, json.loads(found[-1].split(" ", 1)[1])))
+        log(f"{label}: {rows[-1][1]}")
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(here, "chiprun_out", "compare.json"), "w") as f:
+        json.dump({"card": gpu_line(), "runs": rows}, f, indent=1)
+    return 0
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2739,19 +3242,24 @@ def main() -> int:
     # phases 16 and 17: the iteration CLI at full width, ResNet-50 and ViT-B/16
     log("iteration CLI at full width:")
     iter_launches, iter_cli = check_iter_cli(dl)
+
+    # phase 18: more than one process
+    log("more than one process:")
+    dist_launches, dist = check_dist()
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
                    "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
                    "cli_variants": cli9, "finetune_augment": ft_aug, "finetune_step": ft_step,
                    "finetune_cli": ft_cli, "cutpaste": cutpaste, "mirror_step": mirror_step,
                    "mirror_cli": mirror_cli, "inference_serving": serve,
-                   "iter_narrow": iter_narrow, "iter_cli": iter_cli}, f, indent=1)
+                   "iter_narrow": iter_narrow, "iter_cli": iter_cli, "dist": dist}, f, indent=1)
     log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")
 
     def by_path(name):
         """Launches of one kernel on every path the script drives: the
         pretrain step's paths, and the finetune, mirror, inference,
-        serving and iteration-CLI paths, which run no dense-loss kernel."""
+        serving and iteration-CLI paths, which run no dense-loss kernel;
+        and phase 18's runs, each rank's counted in that rank's process."""
         paths = {"phase5_step": step_launches[name], "phase7_cli_CP2": launches[name]}
         paths.update({f"phase8_{case}": n[name] for case, n in variant_launches.items()})
         paths.update({f"phase9_cli_{run}": n[name] for run, n in cli9_launches.items()})
@@ -2762,6 +3270,7 @@ def main() -> int:
         paths.update({f"phase14_{run}": n[name] for run, n in serve_launches.items()})
         paths.update({run: n[name] for run, n in iter_narrow_launches.items()})
         paths.update({run: n[name] for run, n in iter_launches.items()})
+        paths.update({run: n[name] for run, n in dist_launches.items()})
         return paths
 
     kernels = [
@@ -2799,4 +3308,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == DIST_RANK:
+        sys.exit(dist_rank(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == NCCL_PROBE:
+        sys.exit(nccl_probe(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == COMPARE:
+        sys.exit(compare_trees(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == COMPARE_ONE:
+        sys.exit(compare_one())
     sys.exit(main())

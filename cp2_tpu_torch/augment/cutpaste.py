@@ -32,6 +32,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from cp2_tpu_torch.parallel import current_layout, take_rows
+
 
 @dataclass(frozen=True)
 class CutPasteConfig:
@@ -76,9 +78,13 @@ def sample_cutpaste(generator: torch.Generator, n: int, hw: Tuple[int, int],
     (``cutpaste.py:42-84,129-137``): REGULAR area in [min, max] and aspect
     in [min_ar, max_ar], no rotation; SCAR area in [min, max/2], aspect in
     [3, 6] and a rotation in [min_rotation, max_rotation] degrees; the
-    rotated box's half extents keep the paste inside the frame."""
+    rotated box's half extents keep the paste inside the frame.  ``n`` is
+    this rank's row count; the draw covers the global batch, of which each
+    rank keeps its rows (``parallel.take_rows``)."""
     dev = generator.device
     h, w = hw
+    layout = current_layout()
+    n = n * layout.world
     slots = max(cfg.max_num_patches, 1)
 
     def u(*shape):
@@ -108,13 +114,13 @@ def sample_cutpaste(generator: torch.Generator, n: int, hw: Tuple[int, int],
     bh = (ph * cos.abs() + pw * sin.abs()) / 2.0
     bw = (pw * cos.abs() + ph * sin.abs()) / 2.0
     u_sy, u_sx, u_dy, u_dx = u(4, *shape)
-    return CutPasteParams(
+    return take_rows(CutPasteParams(
         target=target, active=active,
         src_cy=ph / 2 + u_sy * (h - ph), src_cx=pw / 2 + u_sx * (w - pw),
         half_h=ph / 2, half_w=pw / 2,
         dst_cy=bh + u_dy * (h - 2 * bh).clamp_min(0.0),
         dst_cx=bw + u_dx * (w - 2 * bw).clamp_min(0.0),
-        cos=cos, sin=sin)
+        cos=cos, sin=sin), layout)
 
 
 def apply_cutpaste(images: torch.Tensor, mirrors: Optional[torch.Tensor],

@@ -12,7 +12,10 @@ uint8 frames are the only input: everything runs where the frames are.
 Sampling and applying are split (see ``functional``): ``sample_*_params``
 draws every parameter of a batch from one ``torch.Generator``, and
 ``apply_*_augment`` is deterministic given them; ``*_batch_augment`` /
-``*_augment_batch`` is the two in turn.
+``*_augment_batch`` is the two in turn.  With more than one process a
+sampler draws for the global batch (``n`` rows on each of the W ranks) and
+keeps this rank's rows (``parallel.take_rows``), so W processes augment as
+one process augments the concatenated batch.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from cp2_tpu_torch.augment import functional as F
+from cp2_tpu_torch.parallel import current_layout, take_rows
 
 
 @dataclass(frozen=True)
@@ -88,7 +92,10 @@ def sample_pretrain_params(
     each stream) come from a CPU generator seeded with ``generator``'s
     seed, so that the host knows them without waiting on the device.
     Otherwise every view keeps the fixed order 0, as in the JAX package.
+    ``n`` is this rank's row count; the draw covers the global batch.
     """
+    layout = current_layout()
+    n = n * layout.world
     if cfg.jitter_random_order:
         orders = torch.randint(0, len(F.JITTER_ORDERS), (4,),
                                generator=torch.Generator().manual_seed(
@@ -103,7 +110,7 @@ def sample_pretrain_params(
                                    cfg.erase_ratio)
     erase1 = F.sample_random_erase(generator, n, cfg.out_hw, cfg.erase_scale,
                                    cfg.erase_ratio)
-    return PretrainAugParams(view_a, view_b, bg0, bg1, erase0, erase1)
+    return take_rows(PretrainAugParams(view_a, view_b, bg0, bg1, erase0, erase1), layout)
 
 
 def _to_float(img: torch.Tensor) -> torch.Tensor:
@@ -234,8 +241,12 @@ class FinetuneAugParams(NamedTuple):
 def sample_finetune_params(generator: torch.Generator, n: int, hw: Tuple[int, int],
                            cfg: FinetuneAugmentConfig, channels: int = 3) -> FinetuneAugParams:
     """Draw the parameters of one finetune batch of ``n`` images of ``hw``
-    on ``generator``'s device, by the laws of ``pipeline.py:203-239``."""
+    on ``generator``'s device, by the laws of ``pipeline.py:203-239``; ``n``
+    is this rank's row count, and the draw (the noise field too) covers the
+    global batch."""
     dev = generator.device
+    layout = current_layout()
+    n = n * layout.world
     order = 0
     if cfg.jitter_random_order:
         order = int(torch.randint(0, len(F.JITTER_ORDERS), (1,), generator=torch.Generator()
@@ -258,7 +269,7 @@ def sample_finetune_params(generator: torch.Generator, n: int, hw: Tuple[int, in
         var=F._uniform(generator, (n,), *cfg.noise_var, dev),
         normal=torch.randn((n, *hw, channels), generator=generator, device=dev),
         apply=F.sample_gate(generator, n, cfg.noise_p))
-    return FinetuneAugParams(hflip, vflip, jitter, bc, distort, noise)
+    return take_rows(FinetuneAugParams(hflip, vflip, jitter, bc, distort, noise), layout)
 
 
 def apply_finetune_augment(images: torch.Tensor, masks: torch.Tensor,
@@ -304,11 +315,15 @@ class EvalAugParams(NamedTuple):
 def sample_eval_params(generator: torch.Generator, n: int, *, hflip_p: float = 0.5,
                        vflip_p: float = 0.5, distort_p: float = 0.0,
                        distort_limit: float = 0.3) -> EvalAugParams:
-    return EvalAugParams(
+    """The val batch's draws; ``n`` is this rank's row count, and the draw
+    covers the global batch."""
+    layout = current_layout()
+    n = n * layout.world
+    return take_rows(EvalAugParams(
         hflip=F.sample_gate(generator, n, hflip_p) if hflip_p > 0 else None,
         vflip=F.sample_gate(generator, n, vflip_p) if vflip_p > 0 else None,
         distort=(F.sample_grid_distortion(generator, n, distort_limit=distort_limit,
-                                          p=distort_p) if distort_p > 0 else None))
+                                          p=distort_p) if distort_p > 0 else None)), layout)
 
 
 def apply_eval_augment(images: torch.Tensor, masks: torch.Tensor, params: EvalAugParams):

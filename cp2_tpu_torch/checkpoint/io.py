@@ -92,6 +92,11 @@ def wait_for_checkpoints() -> None:
         raise err
 
 
+def checkpoint_path(directory: str, step: int) -> str:
+    """The directory ``save_checkpoint(directory, step, ...)`` writes."""
+    return os.path.join(os.path.abspath(os.path.expanduser(directory)), str(step))
+
+
 def save_checkpoint(
     directory: str,
     step: int,
@@ -106,7 +111,7 @@ def save_checkpoint(
     state is copied to the CPU; call :func:`wait_for_checkpoints` before
     reading it back or exiting."""
     directory = os.path.abspath(os.path.expanduser(directory))
-    path = os.path.join(directory, str(step))
+    path = checkpoint_path(directory, step)
     os.makedirs(path, exist_ok=True)
     payload = state_payload(state)
     target = os.path.join(path, STATE_NAME)

@@ -17,6 +17,8 @@ from the ``dropout`` rng stream: in train mode each kept activation is
 scaled by 1/keep, each dropped one set to 0 (``heads.py:82-83,134-135``);
 in eval mode, or at ratio 0, it is the identity.  The contrast heads
 return before the dropout, so the pretrain step draws no random numbers.
+With more than one process the mask is drawn for the global batch and each
+rank keeps its rows (``parallel.mesh``), as one process would draw it.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch import nn
 
 from cp2_tpu_torch.models.layers import ConvMLP, ConvModule, conv2d
 from cp2_tpu_torch.models.registry import HEADS
+from cp2_tpu_torch.parallel import current_layout
 
 
 def _select_input(inputs, in_index):
@@ -45,7 +48,10 @@ def dropout(y: torch.Tensor, ratio: float, training: bool,
     if generator is None:
         raise ValueError("train-mode dropout needs a generator")
     keep_prob = 1.0 - ratio
-    keep = torch.rand(y.shape, generator=generator, device=y.device) < keep_prob
+    layout = current_layout()
+    drawn = torch.rand((y.shape[0] * layout.world,) + tuple(y.shape[1:]),
+                       generator=generator, device=y.device)
+    keep = layout.rows(drawn) < keep_prob
     return torch.where(keep, y / keep_prob, torch.zeros((), dtype=y.dtype, device=y.device))
 
 

@@ -13,8 +13,12 @@ Port of ``cp2_tpu/models/layers.py``.  What carries over, and what does not:
 * ``DilatedConv3x3`` and ``SpaceToDepthConv`` are exact TPU rewrites of a
   plain conv (tap-split dilated conv, space-to-depth stem); here both are
   the one ``nn.Conv2d`` named ``conv``, so bridged weights load unchanged.
-* "BN" and "SyncBN" are the same module: on one card the batch statistics
-  already cover the whole batch.
+* "BN" and "SyncBN" are the same module, as in the JAX package, where
+  global-view ``jit`` makes every BatchNorm's statistics cover the global
+  batch.  On one process they do anyway; with a process group of W > 1
+  ranks, train-mode ``BatchNorm`` reduces its statistics over the ranks
+  (``_global_moments``), so W processes normalise as one process would on
+  the concatenated batch.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cp2_tpu_torch.parallel import collectives
 
 FLAX_BN_MOMENTUM = 0.9  # weight of the old running stat (flax convention)
 BN_EPS = 1e-5
@@ -77,6 +83,8 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
         m = FLAX_BN_MOMENTUM
+        if collectives.world_size() > 1:
+            return self._global_forward(x, update=not getattr(_recompute, "depth", 0))
         if getattr(_recompute, "depth", 0):
             # the first forward's call on copies of the statistics: the
             # same result and the same tensors saved for the backward
@@ -92,6 +100,53 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             self.running_var.mul_(m / n).add_(torch_var, alpha=(n - 1) / n)
         return y
+
+    def _global_forward(self, x: torch.Tensor, update: bool) -> torch.Tensor:
+        """Train-mode BatchNorm over the global batch of every rank: the
+        batch mean and biased variance of ``_global_moments``, float32, and
+        the running statistics moved by them as flax moves its own (not
+        while a checkpointed block recomputes)."""
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xf = x.float()
+        mean, var = _global_moments(xf)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + BN_EPS).view(shape)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
+        if update:
+            m = FLAX_BN_MOMENTUM
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        return y.to(x.dtype)
+
+
+def _global_moments(xf: torch.Tensor):
+    """Per-channel mean and biased variance of a float32 (N, C, ...) batch
+    over every rank's rows.
+
+    Each rank takes its own count, mean and centred sum of squares, and one
+    differentiable ``all_reduce`` of a zero (W, 3, C) buffer in which it
+    filled its own slot gives every rank all of them; they combine as
+    Chan's parallel variance does (the centred sums plus each rank's count
+    times its mean's squared distance from the global mean), which keeps
+    the digits a one-pass E[x²] − E[x]² would lose.  The all-reduce's
+    backward sums the statistics' gradients over the ranks, so after
+    ``pmean_gradients`` each rank holds the gradient of the global batch's
+    mean loss.
+    """
+    from torch.distributed.nn import functional as dist_fn
+
+    dims = [0] + list(range(2, xf.dim()))
+    count = xf.numel() // xf.shape[1]
+    var_l, mean_l = torch.var_mean(xf, dim=dims, correction=0)
+    mine = torch.stack([torch.full_like(mean_l, float(count)), mean_l, var_l * count])
+    world, rank = collectives.world_size(), collectives.rank()
+    slots = torch.cat([mine.new_zeros((rank, 3, mine.shape[1])), mine[None],
+                       mine.new_zeros((world - rank - 1, 3, mine.shape[1]))])
+    counts, means, m2s = dist_fn.all_reduce(slots).unbind(1)
+    n = counts.sum(0)
+    mean = (counts * means).sum(0) / n
+    var = (m2s.sum(0) + (counts * (means - mean) ** 2).sum(0)) / n
+    return mean, var
 
 
 class GroupNorm(nn.GroupNorm):

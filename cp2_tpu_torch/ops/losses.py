@@ -13,6 +13,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from cp2_tpu_torch.parallel import concat_all_gather, world_size
+
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """Unit-normalize along ``dim`` (``x / max(‖x‖, eps)``)."""
@@ -102,9 +104,14 @@ def negative_reshape(logits_dense: torch.Tensor, labels_dense: torch.Tensor,
         return torch.where(is_neg, squash(logits_dense - shift), logits_dense)
     if negative_type == "HARD":
         # the linear-law 75th percentile of the negatives: sort by value,
-        # then stably by "is positive", so the negatives lead in order
-        flat = logits_dense.reshape(-1).float()
-        neg = is_neg.reshape(-1)
+        # then stably by "is positive", so the negatives lead in order.  The
+        # percentile is the global batch's: with more than one process it
+        # is taken over every rank's rows (it only gates, no gradient)
+        flat, neg = logits_dense.detach().float(), is_neg
+        if world_size() > 1:
+            flat = concat_all_gather(flat)
+            neg = concat_all_gather(neg.float()).bool()
+        flat, neg = flat.reshape(-1), neg.reshape(-1)
         by_value, order = torch.sort(flat)
         _, by_label = torch.sort((~neg[order]).to(torch.int32), stable=True)
         svals = by_value[by_label]

@@ -30,6 +30,13 @@ artifacts (CP2/PROPOSED).  On the kernel route the metrics form the
 (N, S², S²) similarities with their own no-grad einsum.  On the plain
 route the accuracy and the visuals read the reshaped, weighted logits
 and the dense statistics the raw ones, as in the JAX objective.
+
+With more than one process each rank holds its rows of the global batch.
+The losses are means over the rows, so the mean of the ranks' losses is
+the global loss; the statistics that mix rows are taken on every rank's
+rows (``concat_all_gather``): the cross-image std, the NaN-skipping means
+of the dense score statistics, and DenseCL's matching rate (its counts
+summed), as global-view ``jit`` takes them over the global batch.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from cp2_tpu_torch.ops.losses import (
     row_quantiles_linear,
     topk_accuracy,
 )
+from cp2_tpu_torch.parallel import concat_all_gather, psum_metrics, world_size
 from cp2_tpu_torch.ssl.hparams import SSLHyperParams
 from cp2_tpu_torch.types import MappingType, NegativeType
 
@@ -229,9 +237,20 @@ def _epoch_family(loss, loss_instance, loss_dense, logits_moco, logits_dense,
         "train/loss_dense_step": loss_dense.detach(),
         "train/acc_ins_step": acc1,
         "train/acc_seg_step": hit.mean() * 100.0,
-        "train/cross_image_variance_source_step": q_pos.std(dim=0, unbiased=False).mean(),
-        "train/cross_image_variance_target_step": k_pos.std(dim=0, unbiased=False).mean(),
+        **dict(zip(("train/cross_image_variance_source_step",
+                    "train/cross_image_variance_target_step"),
+                   _cross_image_variances(q_pos, k_pos))),
     }
+
+
+def _cross_image_variances(q: torch.Tensor, k: torch.Tensor):
+    """The mean over channels of the std across the batch of ``q`` and of
+    ``k`` (N, C): over the global batch, whose rows one ``concat_all_gather``
+    brings to every rank."""
+    if world_size() > 1:
+        both = concat_all_gather(torch.cat([q, k], dim=1))
+        q, k = both[:, :q.shape[1]], both[:, q.shape[1]:]
+    return q.std(dim=0, unbiased=False).mean(), k.std(dim=0, unbiased=False).mean()
 
 
 def _visual_arrays(batch, img_a, flat_mask_a, flat_mask_b, logits_dense, region_corr):
@@ -402,8 +421,7 @@ def densecl_objective(
                 m = {
                     "step/average_iou": iou.mean(),
                     "step/non_zero_iou_ratio": (iou > 0).float().mean(),
-                    "step/matching_positives_rate": torch.where(
-                        n_overlap > 0, match.sum() / n_overlap.clamp_min(1), -1.0),
+                    "step/matching_positives_rate": _global_rate(match.sum(), n_overlap),
                     "step/dense_average_positive_scores": pos_flat.mean(),
                     "step/dense_average_negative_scores": neg_flat.mean(),
                 }
@@ -444,10 +462,9 @@ def densecl_objective(
                 "train/loss_step": loss.detach(),
                 "train/loss_ins_step": loss_global.detach(),
                 "train/loss_dense_step": loss_local.detach(),
-                "step/cross_image_variance_source_step":
-                    d1["qg"].std(dim=0, unbiased=False).mean(),
-                "step/cross_image_variance_target_step":
-                    d1["kg"].std(dim=0, unbiased=False).mean(),
+                **dict(zip(("step/cross_image_variance_source_step",
+                            "step/cross_image_variance_target_step"),
+                           _cross_image_variances(d1["qg"], d1["kg"]))),
             }
             if metrics_level >= 1:
                 metrics.update(d1["metrics"])
@@ -461,6 +478,15 @@ def densecl_objective(
 # metric helpers
 # ---------------------------------------------------------------------------
 
+def _global_rate(hits: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """``hits / total`` over the global batch (-1 where ``total`` is 0):
+    both counts summed over the ranks first."""
+    if world_size() > 1:
+        sums = psum_metrics({"hits": hits, "total": total})
+        hits, total = sums["hits"], sums["total"]
+    return torch.where(total > 0, hits / total.clamp_min(1), -1.0)
+
+
 def _instance_stat_metrics(l_pos, l_neg):
     q = row_quantiles_linear(l_neg, (0.25, 0.5, 0.75))
     return {
@@ -473,14 +499,21 @@ def _instance_stat_metrics(l_pos, l_neg):
 
 
 def _dense_stat_metrics(stats):
+    """Means over the samples of per-sample statistics, NaN (an empty side)
+    left out.  With more than one process the per-sample values of every
+    rank are gathered first: a mean of the ranks' means would weigh each
+    rank's samples by how many of them are not NaN."""
+    def nanmean(x):
+        return torch.nanmean(concat_all_gather(x) if world_size() > 1 else x)
+
     out = {}
     for side in ("positive", "negative"):
         avg = stats[side]["average"]
         lo, med, hi = stats[side]["quartiles"]
-        out[f"step/dense_per_sample_average_{side}_scores"] = torch.nanmean(avg)
-        out[f"step/dense_per_sample_lower_{side}_scores"] = torch.nanmean(lo)
-        out[f"step/dense_per_sample_median_{side}_scores"] = torch.nanmean(med)
-        out[f"step/dense_per_sample_upper_{side}_scores"] = torch.nanmean(hi)
-    out["train/+ive_scores_step"] = torch.nanmean(stats["positive"]["average"])
-    out["train/-ive_scores_step"] = torch.nanmean(stats["negative"]["average"])
+        out[f"step/dense_per_sample_average_{side}_scores"] = nanmean(avg)
+        out[f"step/dense_per_sample_lower_{side}_scores"] = nanmean(lo)
+        out[f"step/dense_per_sample_median_{side}_scores"] = nanmean(med)
+        out[f"step/dense_per_sample_upper_{side}_scores"] = nanmean(hi)
+    out["train/+ive_scores_step"] = out["step/dense_per_sample_average_positive_scores"]
+    out["train/-ive_scores_step"] = out["step/dense_per_sample_average_negative_scores"]
     return out

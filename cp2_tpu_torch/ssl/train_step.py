@@ -11,6 +11,18 @@ Per-step randomness: the JAX step folds the step counter into one base
 key (``jax.random.fold_in(rng, state.step)``); here each step seeds a
 fresh generator on the state's device from (base seed, ``state.step``)
 (``step_generator``), so a resumed run replays the same draws.
+
+More than one process (``parallel``): each rank steps on its rows of the
+global batch, and what global-view ``jit`` does implicitly is explicit.
+BatchNorm reduces its statistics over the ranks (``models/layers.py``);
+after the backward ``pmean_gradients`` averages the gradients (explicit
+all-reduces rather than ``DistributedDataParallel``, which would need
+``find_unused_parameters`` for the zero-gradient rule below and would
+change the one-process path); every rank enqueues the global batch's keys
+(``concat_all_gather``), so every queue and pointer equals the one-process
+run's; and a metrics step reports the mean over the ranks of each scalar
+(``psum / W``).  The quiet step's ``_epoch_vec`` stays this rank's: the
+CLI sums it over the ranks at the end of the epoch.
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from cp2_tpu_torch.parallel import concat_all_gather, pmean_gradients, pmean_metrics
 from cp2_tpu_torch.ssl import objectives as obj
 from cp2_tpu_torch.ssl.hparams import SSLHyperParams
 from cp2_tpu_torch.ssl.queue import queue_enqueue
@@ -182,17 +195,23 @@ def make_pretrain_step(
         for p in state.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        pmean_gradients(state.model.parameters())
         state.optimizer.step()
         enq = aux["enqueue"]
         if "queue" in enq:
-            state.queue_ptr = queue_enqueue(state.queue, state.queue_ptr, enq["queue"])
+            state.queue_ptr = queue_enqueue(state.queue, state.queue_ptr,
+                                            concat_all_gather(enq["queue"]))
         if "queue2" in enq:
-            state.queue2_ptr = queue_enqueue(state.queue2, state.queue2_ptr, enq["queue2"])
+            state.queue2_ptr = queue_enqueue(state.queue2, state.queue2_ptr,
+                                             concat_all_gather(enq["queue2"]))
         state.step += 1
         metrics = dict(aux["metrics"])
         metrics["loss"] = loss.detach()
         if epoch_scalars:
             metrics["_epoch_vec"] = epoch_vector(pt, metrics)
+        if metrics_level >= 1:
+            metrics.update(pmean_metrics(
+                {k: v for k, v in metrics.items() if not k.startswith("_")}))
         return state, metrics
 
     return step_fn

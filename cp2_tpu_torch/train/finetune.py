@@ -18,7 +18,13 @@ Run: ``python -m cp2_tpu_torch.train.finetune --run_id r0 --log_dir
 It runs on the card; ``main(args, device="cpu")`` runs it on the CPU, as
 the tests do.  Pretrained weights load from the port's own checkpoints and
 torch-format files (``checkpoint/convert.py``); the port reads no orbax
-checkpoint.  More than one process raises ``NotImplementedError``.
+checkpoint (``tools/jax_to_torch_checkpoint.py`` converts a JAX pretrain
+run).  ``torchrun --nproc_per_node N -m cp2_tpu_torch.train.finetune ...``
+runs one process per card: ``--batch_size`` is the global batch, each
+rank loads its rows, and the confusion counts and eval losses are summed
+over the ranks, so every rank takes the same best-epoch decision.  Rank 0
+writes the logs, metrics and checkpoints; the others wait for its best
+checkpoint before the test pass (``parallel.barrier``).
 """
 
 from __future__ import annotations
@@ -141,15 +147,18 @@ def load_any_checkpoint(path: str):
 def main(args, device="cuda"):
     """Finetune as the flags say, on ``device``; returns the test metrics.
 
-    The default device is the card: with none present this raises, it
-    never carries on on the CPU.
+    The default device is the card (``cuda:LOCAL_RANK`` under ``torchrun``):
+    with none present this raises, it never carries on on the CPU.  With
+    ``torchrun``'s environment set it joins that process group first and
+    leaves it at the end (``parallel.process_group``).
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("more than one process is not ported yet")
+    from cp2_tpu_torch.parallel import process_group
 
+    with process_group(device) as layout:
+        return _finetune(args, layout)
+
+
+def _finetune(args, layout):
     import cp2_tpu_torch
     from cp2_tpu_torch.augment import (
         FinetuneAugmentConfig,
@@ -172,6 +181,7 @@ def main(args, device="cuda"):
     from cp2_tpu_torch.models import build_segmentor
     from cp2_tpu_torch.models.layers import init_flax_like_
     from cp2_tpu_torch.ops.metrics import ConfusionState
+    from cp2_tpu_torch.parallel import barrier, check_replicas, psum_metrics
     from cp2_tpu_torch.ssl.train_step import step_generator
     from cp2_tpu_torch.train.segmentation_task import (
         create_seg_state,
@@ -179,18 +189,20 @@ def main(args, device="cuda"):
         make_seg_steps,
         seg_forward,
     )
-    from cp2_tpu_torch.utils import MetricLogger, seed_everything, setup_logger
+    from cp2_tpu_torch.checkpoint.io import checkpoint_path
+    from cp2_tpu_torch.utils import MetricLogger, NullSink, seed_everything, setup_logger
 
+    device = layout.device
     seed = seed_everything(args.seed)
     run_dir = os.path.join(args.log_dir, args.run_id)
     os.makedirs(run_dir, exist_ok=True)
-    logger = setup_logger("finetune", run_dir)
+    logger = setup_logger("finetune", run_dir if layout.is_main else None)
     sink = MetricLogger(
         args.log_dir, args.run_id, use_wandb=args.use_wandb,
         wandb_project=args.wandb_project, wandb_team=args.wandb_team,
         offline=args.offline_wandb, config={"hyper-parameters": vars(args)},
         tags=["finetune"] + args.tags,
-    )
+    ) if layout.is_main else NullSink()
 
     # ---------------- data ----------------
     pairs = list_image_mask_pairs(args.img_dirs[0], args.mask_dirs[0])
@@ -199,10 +211,17 @@ def main(args, device="cuda"):
         raise ValueError("train split is empty — check --img_dirs/--mask_dirs")
     if args.batch_size > len(splits["train"]):
         # smoke runs hand in tiny datasets; a batch larger than the train
-        # split would make the (drop_last) train loader yield zero steps
+        # split would make the (drop_last) train loader yield zero steps.
+        # The clamp keeps a multiple of the process count, as the JAX CLI
+        # keeps one of its device count
+        eff = max(len(splits["train"]) // layout.world * layout.world, 1)
         logger.warning(f"batch_size {args.batch_size} > train split "
-                       f"{len(splits['train'])}; clamping to {len(splits['train'])}")
-        args.batch_size = len(splits["train"])
+                       f"{len(splits['train'])}; clamping to {eff}")
+        args.batch_size = eff
+    # each rank loads its rows of the global batch (cp2_tpu/train/finetune.py:185-191)
+    local_batch = layout.local_batch(args.batch_size)
+    # a whole number of global batches, whatever the process count, so that
+    # W processes evaluate the subset one process evaluates
     pseudo = pseudo_test_subset(splits["test"], args.batch_size, 1)
     logger.info(f"splits: train={len(splits['train'])} val={len(splits['val'])} "
                 f"test={len(splits['test'])} pseudo={len(pseudo)}")
@@ -231,9 +250,10 @@ def main(args, device="cuda"):
                     args.raw_cache_dir, [p for pr in paths for p in pr], hw, mode,
                 ) if args.raw_cache_dir else None
                 return NativePairLoader(
-                    paths, args.batch_size, hw, mode=mode, random_crop=random_crop,
+                    paths, local_batch, hw, mode=mode, random_crop=random_crop,
                     num_classes=args.num_classes, threads=max(args.num_workers, 1),
-                    seed=loader_seed, shuffle=shuffle, drop_last=shuffle, cache_path=cache)
+                    seed=loader_seed, shuffle=shuffle, drop_last=shuffle,
+                    shard=layout.shard, cache_path=cache)
             if not said_native:
                 said_native.append(True)
                 logger.info("native loader unavailable "
@@ -241,8 +261,9 @@ def main(args, device="cuda"):
                             "using the Python loader (PIL)")
         src = SegmentationDataSource(paths, hw, args.num_classes, random_crop=random_crop,
                                      seed=loader_seed, mode=geometry)
-        return HostDataLoader(src, args.batch_size, shuffle=shuffle, drop_last=shuffle,
-                              seed=loader_seed, num_workers=args.num_workers)
+        return HostDataLoader(src, local_batch, shuffle=shuffle, drop_last=shuffle,
+                              seed=loader_seed, num_workers=args.num_workers,
+                              shard=layout.shard)
 
     train_loader = loader(splits["train"], True, True, args.seed)
     val_loader = loader(splits["val"], True, False, args.seed + 1)
@@ -288,6 +309,7 @@ def main(args, device="cuda"):
 
     train_step, eval_step, metrics_of = make_seg_steps(args.num_classes, hw, frozen=frozen)
     state = create_seg_state(model, make_adam(args.learning_rate, args.weight_decay), device)
+    check_replicas(state.model.parameters())
     aug_cfg = lemon_augment_config() if args.lemon_data else FinetuneAugmentConfig()
     to_device = HostToDevice(device)
 
@@ -308,12 +330,17 @@ def main(args, device="cuda"):
                     distort_p=0.2 if args.lemon_data else 0.0)
             confusion, m = eval_step(state, {"image": images, "mask": masks,
                                              "valid": batch.get("valid")}, confusion)
-            w = float(m["weight"])
-            loss_sum += float(m["loss"]) * w
-            weight_sum += w
+            loss_sum = loss_sum + m["loss"].double() * m["weight"]
+            weight_sum = weight_sum + m["weight"].double()
+        # the global batch's counts and losses: the sums over the ranks
+        tot = psum_metrics({
+            "counts": confusion.matrix,
+            "loss": torch.as_tensor(loss_sum, dtype=torch.float64, device=device),
+            "weight": torch.as_tensor(weight_sum, dtype=torch.float64, device=device)})
+        confusion = ConfusionState(matrix=tot["counts"])
         result = {k: float(v) for k, v in metrics_of(confusion, prefix).items()}
-        if weight_sum > 0:
-            result[f"{prefix}loss"] = loss_sum / weight_sum
+        if float(tot["weight"]) > 0:
+            result[f"{prefix}loss"] = float(tot["loss"]) / float(tot["weight"])
         return result
 
     overlay_batch = []
@@ -356,7 +383,7 @@ def main(args, device="cuda"):
     monitor = ("val_BinaryJaccardIndex" if args.num_classes == 2
                else "val_MulticlassJaccardIndex")
     for epoch in range(args.epochs):
-        if args.visualize_freq > 0 and epoch % args.visualize_freq == 0:
+        if args.visualize_freq > 0 and epoch % args.visualize_freq == 0 and layout.is_main:
             write_overlays(epoch)
         confusion = ConfusionState.create(args.num_classes, device)
         t0 = time.time()
@@ -382,8 +409,10 @@ def main(args, device="cuda"):
                 break
         if m is None:
             raise ValueError("the train loader yielded no batch")
-        train_metrics = {k: float(v) for k, v in metrics_of(confusion, "train_").items()}
-        train_metrics["train_loss"] = float(m["loss"])
+        tot = psum_metrics({"counts": confusion.matrix, "loss": m["loss"]})
+        train_metrics = {k: float(v) for k, v in metrics_of(
+            ConfusionState(matrix=tot["counts"]), "train_").items()}
+        train_metrics["train_loss"] = float(tot["loss"]) / layout.world
         train_metrics["epoch_time"] = time.time() - t0
 
         val_metrics = run_eval(val_loader, "val_", flips=True, epoch=epoch)
@@ -396,12 +425,15 @@ def main(args, device="cuda"):
         if val_metrics.get(monitor, -1.0) > best_iou:
             best_iou = val_metrics[monitor]
             prev_best = best_path
+            # every rank takes this branch (the metrics are global); rank 0
+            # writes, the others name the same directory
             best_path = save_checkpoint(
                 run_dir, state.step, state,
                 meta={"epoch": epoch, monitor: best_iou,
-                      "pretrain_type": args.pretrain_type.name})
+                      "pretrain_type": args.pretrain_type.name},
+            ) if layout.is_main else checkpoint_path(run_dir, state.step)
             logger.info(f"new best {monitor}={best_iou:.4f} -> {best_path}")
-            if prev_best and prev_best != best_path:
+            if prev_best and prev_best != best_path and layout.is_main:
                 # save_top_k=1 (reference finetune.py:165-171)
                 shutil.rmtree(prev_best, ignore_errors=True)
         if step_timer is not None:
@@ -411,6 +443,7 @@ def main(args, device="cuda"):
 
     # final test on the best checkpoint (reference finetune.py:257-274)
     if best_path is not None:
+        barrier()  # rank 0's best checkpoint is written (cp2_tpu/train/finetune.py:484-490)
         state, _ = restore_checkpoint(best_path, state)
     test_metrics = run_eval(test_loader, "test_")
     sink.log(test_metrics, step=state.step)

@@ -17,7 +17,11 @@ Config surface (python file), as ``tools/train.py`` reads it:
 
 Run: ``python -m cp2_tpu_torch.train.iter_train CONFIG --work-dir DIR``.
 It runs on the card; ``main(args, device="cpu")`` runs it on the CPU, as
-the tests do.  More than one process raises ``NotImplementedError``.
+the tests do.  ``torchrun --nproc_per_node N -m
+cp2_tpu_torch.train.iter_train CONFIG ...`` runs one process per card: the
+config's ``batch_size`` is the global batch, each rank loads its rows
+(``shard=(rank, N)``), the eval's intersection and union counts are summed
+over the ranks, and rank 0 writes the log and the checkpoints.
 
 What the JAX CLI does and this one does as well: SGD is optax's
 ``chain(add_decayed_weights, sgd)`` (``make_sgd``), any other type
@@ -77,15 +81,18 @@ def main(args, device="cuda"):
     """Train as the config says, on ``device``; returns a summary: the final
     eval, the last iteration, its loss and each eval's seconds.
 
-    The default device is the card: with none present this raises, it
-    never carries on on the CPU.
+    The default device is the card (``cuda:LOCAL_RANK`` under ``torchrun``):
+    with none present this raises, it never carries on on the CPU.  With
+    ``torchrun``'s environment set it joins that process group first and
+    leaves it at the end (``parallel.process_group``).
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("more than one process is not ported yet")
+    from cp2_tpu_torch.parallel import process_group
 
+    with process_group(device) as layout:
+        return _train(args, layout)
+
+
+def _train(args, layout):
     from cp2_tpu_torch.checkpoint import restore_checkpoint, save_checkpoint
     from cp2_tpu_torch.checkpoint.io import STATE_NAME
     from cp2_tpu_torch.config import Config
@@ -94,6 +101,7 @@ def main(args, device="cuda"):
     from cp2_tpu_torch.models import build_segmentor
     from cp2_tpu_torch.models.layers import init_flax_like_
     from cp2_tpu_torch.ops.metrics import ConfusionState, eval_metrics, intersect_and_union
+    from cp2_tpu_torch.parallel import barrier, check_replicas, pmean_metrics, psum_metrics
     from cp2_tpu_torch.ssl.train_step import step_generator
     from cp2_tpu_torch.train.segmentation_task import (
         build_decode_loss,
@@ -110,8 +118,9 @@ def main(args, device="cuda"):
     work_dir = args.work_dir or os.path.join(
         "./work_dirs", os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    logger = setup_logger("train", work_dir)
+    logger = setup_logger("train", work_dir if layout.is_main else None)
     seed = seed_everything(args.seed)
+    device = layout.device
 
     data_cfg = cfg.data
     num_classes = cfg.model["decode_head"].get("num_classes") or 2
@@ -122,12 +131,14 @@ def main(args, device="cuda"):
     train_pairs = list_image_mask_pairs(data_cfg["train"]["img_dir"],
                                         data_cfg["train"]["ann_dir"])
     val_pairs = list_image_mask_pairs(data_cfg["val"]["img_dir"], data_cfg["val"]["ann_dir"])
+    # each rank loads its rows of the global batch (tools/train.py:94-107)
+    local_batch = layout.local_batch(batch_size)
     train_loader = HostDataLoader(
         SegmentationDataSource(train_pairs, img_size, num_classes, random_crop=True),
-        batch_size, shuffle=True, seed=args.seed)
+        local_batch, shuffle=True, seed=args.seed, shard=layout.shard)
     val_loader = HostDataLoader(
         SegmentationDataSource(val_pairs, img_size, num_classes, random_crop=False),
-        batch_size, shuffle=False, drop_last=False)
+        local_batch, shuffle=False, drop_last=False, shard=layout.shard)
     if len(train_loader) == 0:
         raise ValueError(f"{len(train_pairs)} train pairs make no batch of {batch_size}")
 
@@ -144,6 +155,8 @@ def main(args, device="cuda"):
     state = create_seg_state(model, tx, device)
 
     start_iter = 0
+    if args.resume_from or args.load_from:
+        barrier()  # rank 0's checkpoint writes are complete before any rank reads
     if args.resume_from:
         # mmseg resume: weights + optimizer + iteration counter
         state, meta = restore_checkpoint(args.resume_from, state)
@@ -154,6 +167,7 @@ def main(args, device="cuda"):
                              weights_only=True)
         state.model.load_state_dict(payload["model"])
         logger.info(f"loaded weights from {args.load_from}")
+    check_replicas(state.model.parameters())
 
     # decode_head.loss_decode + sampler (Dice/Lovász/OHEM); default CE: None
     decode_loss = build_decode_loss(dict(cfg.model.get("decode_head", {})))
@@ -178,6 +192,8 @@ def main(args, device="cuda"):
                 parts = intersect_and_union(preds, batch["mask"], num_classes)
                 totals = [t + p for t, p in zip(totals, parts)]
         state.model.train()
+        # every rank's images: the counts summed over the ranks
+        totals = list(psum_metrics(dict(enumerate(totals))).values())
         out = eval_metrics(*totals, metrics=("mIoU",))
         result = {k: v.cpu().numpy().tolist() for k, v in out.items()}
         eval_seconds.append(time.perf_counter() - t0)
@@ -201,10 +217,11 @@ def main(args, device="cuda"):
                     step_generator(seed, it, device), confusion)
                 it += 1
                 if it % LOG_EVERY == 0:
-                    logger.info(f"iter {it}/{max_iters} loss={float(m['loss']):.4f}")
+                    loss = float(pmean_metrics({"loss": m["loss"]})["loss"])
+                    logger.info(f"iter {it}/{max_iters} loss={loss:.4f}")
                 if not args.no_validate and it % eval_interval == 0:
                     logger.info(f"eval@{it}: {validate()}")
-                if it % ckpt_interval == 0 or it >= max_iters:
+                if (it % ckpt_interval == 0 or it >= max_iters) and layout.is_main:
                     save_checkpoint(work_dir, it, state, meta={"iter": it})
                 if it >= max_iters:
                     break
@@ -215,7 +232,8 @@ def main(args, device="cuda"):
     final = validate()
     logger.info(f"final eval: {final}")
     return {"final_eval": final, "iter": it, "eval_seconds": eval_seconds,
-            "loss": float(m["loss"]) if it > start_iter else None}
+            "loss": (float(pmean_metrics({"loss": m["loss"]})["loss"])
+                     if it > start_iter else None)}
 
 
 if __name__ == "__main__":

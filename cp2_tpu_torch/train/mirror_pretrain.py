@@ -17,7 +17,12 @@ Run: ``python -m cp2_tpu_torch.train.mirror_pretrain --run_id r0 --log_dir
 directory list its splits).
 
 It runs on the card; ``main(args, device="cpu")`` runs it on the CPU, as
-the tests do.  More than one process raises ``NotImplementedError``.
+the tests do.  ``torchrun --nproc_per_node N -m
+cp2_tpu_torch.train.mirror_pretrain ...`` runs one process per card:
+``--batch-size`` is the global batch, each rank loads and prepares its
+rows (the draws are the global batch's), and the val loss and the logged
+train losses are means over the ranks; rank 0 writes the logs, metrics
+and checkpoints.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from cp2_tpu_torch.augment.cutpaste import (
     apply_cutpaste,
     sample_cutpaste,
 )
+from cp2_tpu_torch.parallel import current_layout, take_rows
 from cp2_tpu_torch.types import MirrorVariant
 
 # generator streams of one step (``ssl.train_step.step_generator``)
@@ -147,9 +153,13 @@ def sample_prepare_params(generator: torch.Generator, n: int, src_hw: Tuple[int,
                           hw: Tuple[int, int], cfg: CutPasteConfig,
                           with_mirror: bool) -> PrepareParams:
     """Draw a batch's crops (scale (0.2, 1.0), flips at 0.5), jitters
-    (p = 0.75, the fixed order 0) and CutPaste on ``generator``'s device."""
-    base = _sample_view(generator, n, src_hw)
-    mirror = _sample_view(generator, n, src_hw) if with_mirror else None
+    (p = 0.75, the fixed order 0) and CutPaste on ``generator``'s device;
+    ``n`` is this rank's row count, and every draw covers the global batch
+    (``parallel.take_rows``)."""
+    layout = current_layout()
+    base = take_rows(_sample_view(generator, n * layout.world, src_hw), layout)
+    mirror = (take_rows(_sample_view(generator, n * layout.world, src_hw), layout)
+              if with_mirror else None)
     return PrepareParams(base, mirror, sample_cutpaste(generator, n, hw, cfg))
 
 
@@ -186,15 +196,18 @@ def prepare(generator: torch.Generator, frames: torch.Tensor,
 def main(args, device="cuda"):
     """Pretrain as the flags say, on ``device``; returns the final state.
 
-    The default device is the card: with none present this raises, it
-    never carries on on the CPU.
+    The default device is the card (``cuda:LOCAL_RANK`` under ``torchrun``):
+    with none present this raises, it never carries on on the CPU.  With
+    ``torchrun``'s environment set it joins that process group first and
+    leaves it at the end (``parallel.process_group``).
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("more than one process is not ported yet")
+    from cp2_tpu_torch.parallel import process_group
 
+    with process_group(device) as layout:
+        return _pretrain(args, layout)
+
+
+def _pretrain(args, layout):
     import cp2_tpu_torch
     from cp2_tpu_torch.checkpoint import save_checkpoint
     from cp2_tpu_torch.config import Config
@@ -204,22 +217,24 @@ def main(args, device="cuda"):
     from cp2_tpu_torch.models import build_segmentor
     from cp2_tpu_torch.models.layers import init_flax_like_
     from cp2_tpu_torch.ops.metrics import ConfusionState
+    from cp2_tpu_torch.parallel import check_replicas, pmean_metrics, psum_metrics
     from cp2_tpu_torch.ssl.train_step import step_generator
     from cp2_tpu_torch.train.mirror_task import make_mirror_steps
     from cp2_tpu_torch.train.segmentation_task import create_seg_state, make_adam
     from cp2_tpu_torch.types import DatasetType
-    from cp2_tpu_torch.utils import MetricLogger, seed_everything, setup_logger
+    from cp2_tpu_torch.utils import MetricLogger, NullSink, seed_everything, setup_logger
 
+    device = layout.device
     seed = seed_everything(args.seed)
     run_dir = os.path.join(args.log_dir, args.run_id)
     os.makedirs(run_dir, exist_ok=True)
-    logger = setup_logger("mirror", run_dir)
+    logger = setup_logger("mirror", run_dir if layout.is_main else None)
     sink = MetricLogger(
         args.log_dir, args.run_id, use_wandb=args.use_wandb,
         wandb_project=args.wandb_project, wandb_team=args.wandb_team,
         offline=args.offline_wandb, config={"hyper-parameters": vars(args)},
         tags=["cutpaste"] + args.tags,
-    )
+    ) if layout.is_main else NullSink()
 
     hw = (args.img_x_size, args.img_y_size)
     train_files = get_pretrain_files(args.data_dirs, DatasetType.CSV, "train")
@@ -229,9 +244,13 @@ def main(args, device="cuda"):
         raise ValueError("train split is empty — check --data_dirs")
     if args.batch_size > len(train_files):
         # tiny smoke datasets: a drop_last train loader would yield 0 steps
+        # (a multiple of the process count, as in the finetune CLI)
+        eff = max(len(train_files) // layout.world * layout.world, 1)
         logger.warning(f"batch_size {args.batch_size} > train files "
-                       f"{len(train_files)}; clamping to {len(train_files)}")
-        args.batch_size = len(train_files)
+                       f"{len(train_files)}; clamping to {eff}")
+        args.batch_size = eff
+    # each rank loads its rows (cp2_tpu/train/mirror_pretrain.py:149-155)
+    local_batch = layout.local_batch(args.batch_size)
     if args.raw_cache_dir:
         os.makedirs(args.raw_cache_dir, exist_ok=True)
     said_native = []
@@ -252,16 +271,17 @@ def main(args, device="cuda"):
                     args.raw_cache_dir, files, base_hw, "none"
                 ) if args.raw_cache_dir else None
                 return NativePretrainLoader(
-                    files, args.batch_size, base_hw, threads=max(args.num_workers, 1),
-                    seed=loader_seed, shuffle=shuffle, drop_last=shuffle, cache_path=cache)
+                    files, local_batch, base_hw, threads=max(args.num_workers, 1),
+                    seed=loader_seed, shuffle=shuffle, drop_last=shuffle,
+                    shard=layout.shard, cache_path=cache)
             if not said_native:
                 said_native.append(True)
                 logger.info("native loader unavailable "
                             f"({(build_error() or '').strip()[-300:]}); "
                             "using the Python loader (PIL)")
-        return HostDataLoader(PretrainDataSource(files, base_hw), args.batch_size,
+        return HostDataLoader(PretrainDataSource(files, base_hw), local_batch,
                               shuffle=shuffle, drop_last=shuffle, seed=loader_seed,
-                              num_workers=args.num_workers)
+                              num_workers=args.num_workers, shard=layout.shard)
 
     train_loader = loader(train_files, True, args.seed)
     # mirror base images come from an independently shuffled stream
@@ -280,6 +300,7 @@ def main(args, device="cuda"):
     model = build_segmentor(model_cfg)
     init_flax_like_(model, torch.Generator().manual_seed(args.seed))
     state = create_seg_state(model, make_adam(args.lr, args.weight_decay), device)
+    check_replicas(state.model.parameters())
 
     cut_cfg = cutpaste_config(args)
     train_step, eval_step = make_mirror_steps(
@@ -332,20 +353,25 @@ def main(args, device="cuda"):
                             frames["image"], frames["mirror"], hw, cut_cfg, args.variant)
             batch["valid"] = frames["valid"]  # pad mask of the drop_last=False loader
             vconf, vm = eval_step(state, batch, vconf)
-            val_losses.append((float(vm["val_loss"]), float(vm["weight"])))
+            val_losses.append((vm["val_loss"].double() * vm["weight"], vm["weight"].double()))
             if args.fast_dev_run and i >= 1:
                 break
-        val_loss = (sum(v * w for v, w in val_losses) / max(sum(w for _, w in val_losses), 1e-9)
-                    if val_losses else float("nan"))
-        sink.log({**{k: float(v) for k, v in metrics.items()},
+        val_loss = float("nan")
+        if val_losses:
+            # the global batch's: the weighted sums over the ranks
+            tot = psum_metrics({"loss": sum(v for v, _ in val_losses),
+                                "weight": sum(w for _, w in val_losses)})
+            val_loss = float(tot["loss"]) / max(float(tot["weight"]), 1e-9)
+        sink.log({**{k: float(v) for k, v in pmean_metrics(metrics).items()},
                   "val_loss_epoch": val_loss, "epoch": epoch}, step=state.step)
         logger.info(f"epoch {epoch}: val_loss={val_loss:.4f}")
         if val_loss < best_val:
             best_val = val_loss
-            path = save_checkpoint(run_dir, state.step, state,
-                                   meta={"epoch": epoch, "val_loss": val_loss,
-                                         "pretrain_type": "MIRROR"})
-            logger.info(f"new best val_loss={val_loss:.4f} -> {path}")
+            if layout.is_main:
+                path = save_checkpoint(run_dir, state.step, state,
+                                       meta={"epoch": epoch, "val_loss": val_loss,
+                                             "pretrain_type": "MIRROR"})
+                logger.info(f"new best val_loss={val_loss:.4f} -> {path}")
         if args.fast_dev_run:
             break
     if step_timer is not None:

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from cp2_tpu_torch.ops.losses import softmax_cross_entropy
 from cp2_tpu_torch.ops.metrics import ConfusionState
+from cp2_tpu_torch.parallel import pmean_gradients
 from cp2_tpu_torch.train.segmentation_task import SegTrainState, seg_forward
 from cp2_tpu_torch.types import MirrorVariant
 
@@ -93,6 +94,7 @@ def make_mirror_steps(num_classes: int, image_hw: Tuple[int, int], *,
             # without one, where optax still decays it
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        pmean_gradients(model.parameters())  # over the ranks, as the segmentation step
         state.optimizer.step()
         state.step += 1
         preds = torch.argmax(all_logits.detach(), dim=-1)

@@ -14,9 +14,14 @@ Run: ``python -m cp2_tpu_torch.train.pretrain --run_id r0 --log_dir
 /tmp/logs --data_dirs <dir> [--pretrain_type CP2] ...``
 
 It runs on the card; ``main(args, device="cpu")`` runs it on the CPU, as
-the tests do.  Ported so far: every pretrain type on one process, with
-``--imagenet_checkpoint`` (a torchvision-layout ResNet grafted into both
-encoders); more than one process raises ``NotImplementedError``.
+the tests do.  Every pretrain type runs, with ``--imagenet_checkpoint`` (a
+torchvision-layout ResNet grafted into both encoders), on one process or
+on several: ``torchrun --nproc_per_node N -m cp2_tpu_torch.train.pretrain
+...`` runs one process per card (``cuda:LOCAL_RANK``).  ``--batch-size``
+is the global batch: each rank loads its ``batch_size / N`` rows
+(``shard=(rank, N)``) and the step reduces over the ranks (``parallel``),
+so N processes train what one process trains on the concatenated batch.
+Rank 0 alone writes the logs, metrics, visuals and checkpoints.
 """
 
 from __future__ import annotations
@@ -215,49 +220,50 @@ def hparams_from_args(args, dataset_size: int):
     )
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("more than one process is not ported yet")
-
-
 def main(args, device="cuda"):
     """Train as the flags say, on ``device``; returns the final state.
 
-    The default device is the card: with none present this raises, it
-    never carries on on the CPU.
+    The default device is the card (``cuda:LOCAL_RANK`` under ``torchrun``):
+    with none present this raises, it never carries on on the CPU.  With
+    ``torchrun``'s environment set it joins that process group first and
+    leaves it at the end (``parallel.process_group``).
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    check_ported(args)
+    from cp2_tpu_torch.parallel import process_group
 
+    with process_group(device) as layout:
+        return _train(args, layout)
+
+
+def _train(args, layout):
     import cp2_tpu_torch
     from cp2_tpu_torch.config import Config
     from cp2_tpu_torch.data import HostDataLoader, PretrainDataSource, get_pretrain_files
     from cp2_tpu_torch.data.datasets import region_mask_path
     from cp2_tpu_torch.data.prefetch import DevicePrefetcher, HostToDevice
+    from cp2_tpu_torch.parallel import barrier, check_replicas, pmean_metrics, psum_metrics
     from cp2_tpu_torch.ssl import SSLEncoder, create_pretrain_state
     from cp2_tpu_torch.utils import (
         AverageMeter,
         MetricLogger,
+        NullSink,
         ProgressMeter,
         seed_everything,
         setup_logger,
     )
     from cp2_tpu_torch.utils.logging import collect_env
 
+    device = layout.device
     seed = seed_everything(args.seed)
     run_dir = os.path.join(args.log_dir, args.run_id)
     os.makedirs(run_dir, exist_ok=True)
-    logger = setup_logger("pretrain", run_dir)
+    logger = setup_logger("pretrain", run_dir if layout.is_main else None)
     metrics_sink = MetricLogger(
         args.log_dir, args.run_id,
         use_wandb=args.use_wandb, wandb_project=args.wandb_project,
         wandb_team=args.wandb_team, offline=args.offline_wandb,
         config={"hyper-parameters": vars(args), "env": collect_env()},
         tags=["pretrain"] + args.tags,
-    )
+    ) if layout.is_main else NullSink()
 
     config_path = args.config or os.path.join(
         os.path.dirname(cp2_tpu_torch.__file__), "configs", "config_pretrain.py"
@@ -283,6 +289,9 @@ def main(args, device="cuda"):
     # region ids (reference loader.py:75-83)
     need_region = hp.mapping_type in (MappingType.REGION_ID, MappingType.PIXEL_REGION_ID)
     base_hw = (args.img_height + 32, args.img_width + 32)
+    # every stream loads this rank's rows of the global batch (the JAX
+    # CLI's shard, cp2_tpu/train/pretrain.py:285-291)
+    local_batch = layout.local_batch(args.batch_size)
     if args.raw_cache_dir:
         os.makedirs(args.raw_cache_dir, exist_ok=True)
 
@@ -305,15 +314,16 @@ def main(args, device="cuda"):
                     cache = default_cache_path(
                         args.raw_cache_dir, [p for pr in pairs for p in pr], base_hw,
                         "region") if args.raw_cache_dir else None
-                    return NativePairLoader(pairs, args.batch_size, base_hw,
+                    return NativePairLoader(pairs, local_batch, base_hw,
                                             mode="region", threads=threads,
-                                            seed=loader_seed, cache_path=cache)
+                                            seed=loader_seed, shard=layout.shard,
+                                            cache_path=cache)
                 cache = default_cache_path(
                     args.raw_cache_dir, files, base_hw, "none"
                 ) if args.raw_cache_dir else None
                 return NativePretrainLoader(
-                    files, args.batch_size, base_hw,
-                    threads=threads, seed=loader_seed, cache_path=cache,
+                    files, local_batch, base_hw, threads=threads, seed=loader_seed,
+                    shard=layout.shard, cache_path=cache,
                 )
             if loader_seed == args.seed:
                 logger.info("native loader unavailable "
@@ -321,8 +331,8 @@ def main(args, device="cuda"):
                             "using the Python loader (PIL)")
         return HostDataLoader(
             PretrainDataSource(files, base_hw, with_region_maps=with_region),
-            args.batch_size, shuffle=True, drop_last=True, seed=loader_seed,
-            num_workers=args.num_workers,
+            local_batch, shuffle=True, drop_last=True, seed=loader_seed,
+            num_workers=args.num_workers, shard=layout.shard,
         )
 
     # three streams: foreground two-crop + two backgrounds (main.py:281-283)
@@ -380,6 +390,7 @@ def main(args, device="cuda"):
     if args.resume:
         # a single checkpoint dir, or a run dir whose latest checkpoint (if
         # any yet) is used; a fresh run dir starts from scratch
+        barrier()  # rank 0's writes are complete before any rank reads
         path = args.resume if is_checkpoint(args.resume) else latest_checkpoint(args.resume)
         if path:
             state, meta = restore_checkpoint(path, state)
@@ -387,6 +398,8 @@ def main(args, device="cuda"):
             logger.info(f"resumed from {path} (epoch {start_epoch})")
         else:
             logger.info(f"no checkpoint found at {args.resume}")
+    check_replicas([*state.model.parameters(), *state.ema_model.parameters(), state.queue,
+                    state.queue2])
 
     def write_visuals(metrics, epoch):
         """Epoch-start artifacts (reference builder.py:1441-1549)."""
@@ -464,11 +477,12 @@ def main(args, device="cuda"):
                 epoch_vec_sum = vec if epoch_vec_sum is None else epoch_vec_sum + vec
                 epoch_vec_count += 1
             if i % args.print_freq == 0:
-                loss_meter.update(float(metrics["loss"]))
+                # the global batch's loss (a quiet step's is this rank's)
+                loss_meter.update(float(pmean_metrics({"loss": metrics["loss"]})["loss"]))
                 batch_time.update(time.time() - end)
                 progress.display(i)
-            if visual_now:
-                write_visuals(metrics, epoch)
+            if visual_now and layout.is_main:
+                write_visuals(metrics, epoch)  # of rank 0's rows
             if log_now or visual_now:
                 metrics_sink.log({k: float(v) for k, v in metrics.items()
                                   if not k.startswith(("_visual/", "_epoch"))},
@@ -477,14 +491,16 @@ def main(args, device="cuda"):
             step += 1
 
         if epoch_vec_count:
-            sums = epoch_vec_sum.cpu().numpy()
+            # every rank's steps: the mean over the ranks of their sums
+            sums = (psum_metrics({"v": epoch_vec_sum})["v"] / layout.world).cpu().numpy()
             metrics_sink.log({name: float(v / epoch_vec_count)
                               for name, v in zip(epoch_names, sums)}, step=step)
             epoch_vec_sum = None
             epoch_vec_count = 0
 
         is_last = epoch >= args.epochs - 1
-        if epoch % args.ckpt_freq == args.ckpt_freq - 1 or step > args.max_steps or is_last:
+        save_now = epoch % args.ckpt_freq == args.ckpt_freq - 1 or step > args.max_steps or is_last
+        if save_now and layout.is_main:
             path = save_checkpoint(
                 run_dir, step, state,
                 meta={"epoch": epoch + 1, "pretrain_type": args.pretrain_type.name,

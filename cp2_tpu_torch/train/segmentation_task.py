@@ -20,6 +20,12 @@ logits resized to label resolution → mean CE → confusion counts, Adam
   optax does (``ROADMAP.md`` §3, parity rules).
 * **Randomness.**  The train step takes a ``torch.Generator`` on the
   state's device for the heads' dropout.
+* **More than one process.**  Each rank steps on its rows of the global
+  batch; BatchNorm reduces its statistics over the ranks and the dropout
+  masks are drawn for the global batch (``parallel``), and the train step
+  averages the gradients over the ranks (``pmean_gradients``).  The
+  confusion counts and eval losses stay each rank's: the CLIs sum them
+  over the ranks (``psum_metrics``) before ``compute_metrics``.
 
 The steps update the state's model and optimizer in place and return the
 new confusion counts; the JAX steps return new pytrees.
@@ -35,6 +41,7 @@ import torch
 from cp2_tpu_torch.ops.losses import softmax_cross_entropy
 from cp2_tpu_torch.ops.metrics import ConfusionState, compute_metrics
 from cp2_tpu_torch.ops.resize import resize_bilinear
+from cp2_tpu_torch.parallel import pmean_gradients
 
 BACKGROUND_CLASS = 0
 
@@ -175,6 +182,7 @@ def make_seg_steps(num_classes: int, image_hw: Tuple[int, int], *,
             # without one, where optax still decays it
             if p.grad is None or (frozen is not None and frozen(name)):
                 p.grad = torch.zeros_like(p)
+        pmean_gradients(model.parameters())
         state.optimizer.step()
         state.step += 1
         return state, confusion.update(preds, masks), {"loss": loss.detach()}

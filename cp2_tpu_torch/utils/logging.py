@@ -216,3 +216,17 @@ class MetricLogger:
         self._jsonl.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullSink:
+    """A ``MetricLogger`` that keeps nothing: the sink of every rank but
+    rank 0 in a run of more than one process."""
+
+    def log(self, metrics: Dict[str, Any], step: Optional[int] = None):
+        del metrics, step
+
+    def log_images(self, images: Dict[str, Any], step: Optional[int] = None):
+        del images, step
+
+    def close(self):
+        pass

@@ -12,6 +12,8 @@ as numpy arrays.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 DIM = 16
@@ -539,3 +541,93 @@ def replay_jax_cutpaste(rng, n, hw, jcfg):
         target=t(cls).long(), active=t(active), src_cy=t(src_cy), src_cx=t(src_cx),
         half_h=t(hh), half_w=t(hw_), dst_cy=t(dst_cy), dst_cx=t(dst_cx),
         cos=t(jnp.cos(theta)), sin=t(jnp.sin(theta)))
+
+
+# ---------------------------------------------------------------------------
+# two processes on the CPU, as torchrun starts them
+# ---------------------------------------------------------------------------
+
+
+def free_ports(count: int):
+    """``count`` distinct ports on localhost that nothing listens on now."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(count):
+            s = socket.socket()
+            s.bind(("localhost", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def spawn_ranks(module_file: str, entry: str, workdir, world: int = 2, timeout: float = 600,
+                threads: int = 1):
+    """Run ``entry(workdir)`` of the test module ``module_file`` in ``world``
+    processes on the CPU with ``torchrun``'s environment (``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), each with
+    ``threads`` torch threads and oneDNN off (see the module docstring of
+    ``tests/test_torch_finetune_cli.py``), and wait for all of them; a rank
+    that fails or outlives ``timeout`` fails the call with every rank's
+    output.  The entry writes what it found under ``workdir``.  A launch
+    port that another process took between its pick and rank 0's bind
+    (``EADDRINUSE``) is picked again, once."""
+    from pathlib import Path
+
+    tests = Path(__file__).resolve().parent
+    code = (f"import sys; sys.path[:0] = [{str(tests)!r}, {str(tests.parent)!r}]\n"
+            "import torch\n"
+            f"torch.set_num_threads({threads}); torch.backends.mkldnn.enabled = False\n"
+            f"import {Path(module_file).stem} as m\n"
+            f"m.{entry}({str(workdir)!r})\n")
+    for attempt in range(2):
+        outs, codes = _spawn_once(code, workdir, world, timeout, threads)
+        if not (attempt == 0 and any("EADDRINUSE" in out or "address already in use" in out
+                                     for out in outs)):
+            break
+    failed = [r for r, c in enumerate(codes) if c != 0]
+    if failed:
+        report = "\n".join(f"--- rank {r} (exit {codes[r]}) ---\n{outs[r][-6000:]}"
+                           for r in range(len(outs)))
+        raise AssertionError(f"ranks {failed} failed:\n{report}")
+    return outs
+
+
+def _spawn_once(code, workdir, world, timeout, threads):
+    """One launch of ``spawn_ranks``: every rank's output and exit code."""
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    port = free_ports(1)[0]
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS=str(threads),
+                   JAX_PLATFORMS="cpu")
+        logs.append(open(Path(workdir) / f"rank{rank}.log", "w+b"))
+        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                      stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        # a failed rank leaves the others waiting in a collective: stop
+        # them a few seconds after it, rather than at the deadline
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                deadline = min(deadline, time.monotonic() + 5)
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read().decode(errors="replace"))
+        f.close()
+    return outs, [p.returncode for p in procs]

@@ -274,6 +274,8 @@ def test_main_without_a_card_raises(data, tmp_path, monkeypatch):
     args = _args(data, tmp_path, "cuda", "--pretrain_type", "NONE", "--fast_dev_run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         finetune.main(args)
+    # a world of 2 with no rank or address cannot rendezvous: it raises,
+    # it never finetunes alone in a run meant for two processes
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="rendezvous"):
         finetune.main(args, device="cpu")

@@ -45,3 +45,28 @@ def test_every_port_module_imports_without_a_card():
     for path in sorted(PORT.rglob("*.py")):
         name = ".".join(path.relative_to(ROOT).with_suffix("").parts)
         importlib.import_module(name.removesuffix(".__init__"))
+
+
+@pytest.mark.parametrize("package", ["parallel", "tools"])
+def test_the_scan_covers_the_process_layer_and_the_tools(package):
+    """``parallel/`` (collectives built on ``all_reduce``) and ``tools/``
+    (the quality gate and its corpus) are in the scan above, and what they
+    import is all of the port, torch, numpy, PIL or the standard library."""
+    files = [p for p in SOURCES if p.parent == PORT / package]
+    assert {p.name for p in files} >= {"__init__.py"} and len(files) >= 3, files
+    allowed = {"cp2_tpu_torch", "torch", "numpy", "PIL", "__future__"}
+    import sys
+
+    for path in files:
+        for module in _imported(path):
+            top = module.split(".")[0]
+            assert top in allowed or top in sys.stdlib_module_names, (path.name, module)
+
+
+def test_the_checkpoint_converter_stays_outside_the_package():
+    """The one file that imports both packages is ``tools/`` at the repo's
+    root, which the scan does not cover."""
+    converter = ROOT / "tools" / "jax_to_torch_checkpoint.py"
+    tops = {m.split(".")[0] for m in _imported(converter)}
+    assert {"cp2_tpu", "cp2_tpu_torch", "jax"} <= tops
+    assert converter not in SOURCES

@@ -247,12 +247,13 @@ def test_resume_is_bit_exact(data, tmp_path):
     ("--negative_type", "HARD"), ("--lmbd_pixel_corr_weight", "2"),
     ("--imagenet_checkpoint", "resnet50.pth"), ("WORLD_SIZE", "2")])
 def test_unported_options_raise(data, tmp_path, monkeypatch, flag):
-    """What the port does not run (more than one process) raises
-    ``NotImplementedError``; flag combinations the validation web refuses
-    (MoCo on a U-Net, CP2 with a negative type or correspondence weights)
-    raise ``ValueError``, as in the JAX CLI; ``--imagenet_checkpoint`` is
-    ported and reads its file, so a missing one raises
-    ``FileNotFoundError``."""
+    """Flag combinations the validation web refuses (MoCo on a U-Net, CP2
+    with a negative type or correspondence weights) raise ``ValueError``,
+    as in the JAX CLI; ``--imagenet_checkpoint`` is ported and reads its
+    file, so a missing one raises ``FileNotFoundError``; a launch
+    environment that names a world of 2 but no rank or address cannot
+    rendezvous and raises ``ValueError``: the CLI never trains alone in a
+    run meant for two processes."""
     if flag[0] == "WORLD_SIZE":
         monkeypatch.setenv(*flag)
         args = _args(data, tmp_path, "x")
@@ -260,8 +261,7 @@ def test_unported_options_raise(data, tmp_path, monkeypatch, flag):
         args = _args(data, tmp_path, "x", *flag)
         args.pretrain_from_scratch = False
         args.batch_size = 8  # the 24 files make 3 batches: the run gets to the load
-    expected ={"WORLD_SIZE": NotImplementedError,
-                "--imagenet_checkpoint": FileNotFoundError}.get(flag[0], ValueError)
+    expected = {"--imagenet_checkpoint": FileNotFoundError}.get(flag[0], ValueError)
     with pytest.raises(expected):
         pretrain.main(args, device="cpu")
 
