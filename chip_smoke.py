@@ -13,8 +13,10 @@ Phases, in order; any failure exits non-zero:
 3. kernels  the dense-pair-loss kernels against their plain PyTorch
             versions, forward value, dq and dk, float32 and bfloat16
             operands, temperatures 1.0 and 0.2, at the CP2 step's shape
-            and eight more (every channel width the kernels are built
-            for, and the U-Net steps' S² = 784 and 49); two runs of each
+            and eleven more (every channel width the kernels are built
+            for, the U-Net steps' S² = 784 and 49, and the experiment
+            drivers' batch 64 and 256 at S² = 196 and lemon.sh's
+            UNET_ENCODER_ONLY at 512², S² = 256); two runs of each
             kernel on the same inputs must be bit-equal, and so must
             forwards run on two streams at once, and a forward captured in
             a CUDA graph and replayed on a second stream while eager
@@ -41,7 +43,8 @@ Phases, in order; any failure exits non-zero:
             card at full width on a synthetic directory of 256x256 PNGs:
             the default config, batch 32, 224x224, bfloat16,
             ``--metrics_level 1``, logged and quiet steps, a checkpoint and a
-            ``--resume`` from it; first, batches staged through the pinned
+            ``--resume`` from it, each epoch's figures at the default
+            ``--visual-freq 1`` decoded by PIL; first, batches staged through the pinned
             copy stream against their host arrays; finite losses, the metric keys in
             ``metrics.jsonl``, one launch of each dense-loss kernel per step,
             the step and ``queue_ptr`` carried on by the resume; quiet and
@@ -76,7 +79,8 @@ Phases, in order; any failure exits non-zero:
             ``config_finetune.py`` (dilated ResNet-50, ASPP classifier),
             352x352, batch 16, bfloat16, 2 epochs of 4 steps on synthetic
             384x448 PNG pairs; lemon (544x1024, 12 classes,
-            ``--fast_dev_run``); ``--linear_evaluation --fast_dev_run``; the
+            ``--fast_dev_run``); ``--linear_evaluation --fast_dev_run``, each
+            at the default ``--visualize_freq`` (epoch 0's overlays decoded); the
             graft loads tensors, losses finite, the monitored key in
             ``metrics.jsonl``, one best checkpoint left, the test keys, no
             dense-loss launch; quiet step, images/s, eval time per epoch,
@@ -154,6 +158,32 @@ Phases, in order; any failure exits non-zero:
             the mirror CLI, and 4 iterations of the iteration CLI, each rank
             ending with the other's results.  A rank that fails fails the
             phase.
+19. scripts the experiment drivers (``cp2_tpu_torch/scripts/*.sh``), on
+            synthetic data made from seeds under ``work_dirs/``: (a) each
+            twin's ``CP2_SCRIPT_DRYRUN=1`` list equals the JAX driver's
+            (configs mapped; same-foreground.sh's MoCo and BYOL pretrains
+            given ``config_moco.py``); (b) every distinct pretrain and
+            mirror invocation of the drivers in process on its own argv at
+            its script's batch and size (sym-coord.sh's loss-weight loop:
+            first and last), ``--epochs 1 --max_steps 3`` on exactly 3
+            batches of images (``--cap_queue``: a queue of 3 x batch) or
+            ``--fast_dev_run``: finite losses, the dense-loss kernels 3 + 3
+            on the kernel route of ``ssl/objectives.py`` and 0 elsewhere,
+            lemon.sh's kernel against its plain version on its own
+            features at (32, 256, 128), the figures; quiet step, images/s,
+            peak memory; (c) polyp.sh's nine finetunes (``--epochs 2``) and
+            a ``--fast_dev_run`` finetune of hist.sh, same-foreground.sh's
+            MoCo, BYOL and DenseCL, lemon-cutpaste.sh and imgnet-pretrained.sh
+            on a synthetic ``.pth`` of each key layout: the graft, the keys,
+            one best checkpoint, the overlay, no launch; (d)
+            polyp-cutpaste.sh (``EPOCHS=1``: its preflight, then the mirror
+            CLI) and dist_train.sh (4 iterations) through bash, each exiting
+            0 with its checkpoint.  In-process runs add their launches to
+            ``launches_by_path``; the two bash runs count theirs in their
+            own processes.
+
+``python3 chip_smoke.py --preflight`` runs phases 1-4 alone, as the
+experiment drivers' ``preflight`` does; it exits non-zero on any failure.
 
 Phases 16 and 17 run the CLI with PyTorch's default backends (cuDNN
 convolutions in TF32, matrix products in float32), as a user runs it.
@@ -174,6 +204,8 @@ import importlib.util
 import json
 import math
 import os
+import re
+import shlex
 import shutil
 import statistics
 import struct
@@ -190,9 +222,12 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM tensor cores, TF32, dense
 TF32_PASSES = 3  # float32 operands run as 3xTF32 products
 # C = 8 and 16 run at the kernels' padded width 32; 64 and 256 are built too;
-# the last two are CP2's in-step shapes on UNET_TRUNCATED and UNET_ENCODER_ONLY
+# (32, 784) and (32, 49) are CP2's in-step shapes on UNET_TRUNCATED and
+# UNET_ENCODER_ONLY at 224²; the last three are the experiment drivers' (phase
+# 19): batch 64 and 256 at 224², and lemon.sh's UNET_ENCODER_ONLY at 512²
 SHAPES = [(32, 196, 128), (8, 1024, 128), (2, 4096, 128), (1, 100, 8), (1, 640, 16),
-          (2, 196, 64), (2, 196, 256), (32, 784, 128), (32, 49, 128)]
+          (2, 196, 64), (2, 196, 256), (32, 784, 128), (32, 49, 128),
+          (64, 196, 128), (256, 196, 128), (32, 256, 128)]
 STEP_SHAPE = SHAPES[0]  # (N, S², C) of the CP2 step at 224², batch 32
 TEMPS = (1.0, 0.2)
 F32_TOL = {"loss_rtol": 2e-5, "grad_rtol": 1e-4}  # tests/test_pallas_dense_loss.py
@@ -372,8 +407,9 @@ def check_graph_replay(dl, q, k, a, b):
 
 def check_kernels(dl):
     """Every shape, temperature and operand type, then the times at each
-    shape; returns the step shape's float32 numbers for the JSON line."""
-    flagship = {}
+    shape; returns the step shape's float32 numbers for the JSON line, and
+    every shape's times and bounds under ``by_shape``."""
+    flagship = {"by_shape": {}}
     for (n, s2, c) in SHAPES:
         q, k, a, b = dense_inputs(n, s2, c, seed=s2 + c)
         for dtype in (torch.float32, torch.bfloat16):
@@ -444,6 +480,7 @@ def check_kernels(dl):
                 f"tensor-core bound {t[d + '_bound_ms']:.4f} ms ({t[d + '_bound_by']}), "
                 f"{100 * t[d + '_bound_ms'] / t[d + '_ms']:.1f} % of it | float32-FMA "
                 f"bound {t[d + '_fp32_fma_bound_ms']:.4f} ms")
+        flagship["by_shape"][f"{n}x{s2}x{c}"] = t
         if (n, s2, c) == STEP_SHAPE:
             flagship.update(t)
     return flagship
@@ -829,7 +866,6 @@ def probe_decoders():
         "png.h": os.path.exists("/usr/include/png.h"),
         "jpeglib.h": any(os.path.exists(p) for p in (
             "/usr/include/jpeglib.h", "/usr/include/x86_64-linux-gnu/jpeglib.h")),
-        "matplotlib": importlib.util.find_spec("matplotlib") is not None,
     }
     log(f"  decoder probe: {found}")
     return found
@@ -902,6 +938,34 @@ def check_copy_stream():
     log(f"  copy stream: {len(host)} staged batches equal their host arrays")
 
 
+PRETRAIN_FIGURES = ("iou_histogram.png", "masked_iou_histogram.png",
+                    "similarity_heatmaps.png", "train_examples.png")
+
+
+def decoded_png(path):
+    """(height, width) of a PNG that PIL decodes; exits if it does not."""
+    from PIL import Image
+
+    try:
+        with Image.open(path) as im:
+            im.load()
+            if im.format != "PNG":
+                raise OSError(f"format {im.format}")
+            return im.size[1], im.size[0]
+    except OSError as e:
+        raise SystemExit(f"{path}: not a PNG that PIL decodes ({e})") from e
+
+
+def pretrain_figures(run_dir, epoch):
+    """The pretrain CLI's figures of one visual epoch, each decoded; their
+    (height, width) by name."""
+    out_dir = os.path.join(run_dir, "visuals", f"epoch_{epoch:04d}")
+    found = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    if found != sorted(PRETRAIN_FIGURES):
+        raise SystemExit(f"{out_dir}: figures {found}, want {sorted(PRETRAIN_FIGURES)}")
+    return {name: decoded_png(os.path.join(out_dir, name)) for name in found}
+
+
 def run_cli(pretrain, argv, clock):
     args = pretrain.get_args(argv)
     clock.last = time.perf_counter()
@@ -930,8 +994,7 @@ def check_cli(dl):
     steps = CLI_STEPS_PER_EPOCH * CLI_EPOCHS
     common = ["--run_id", "smoke", "--log_dir", logs, "--data_dirs", os.path.join(CLI_WORK, "data"),
               "-b", str(CLI_BATCH), "--img_height", "224", "--img_width", "224",
-              "--metrics_level", "1", "--scalar-freq", "3", "--print-freq", "2",
-              "--visual-freq", "1" if probe["matplotlib"] else "0"]
+              "--metrics_level", "1", "--scalar-freq", "3", "--print-freq", "2"]
     clock = StepClock(pretrain.make_pretrain_step)
     pretrain.make_pretrain_step = clock
     try:
@@ -985,6 +1048,9 @@ def check_cli(dl):
         decoder = [line.split("decoder: ")[1].strip() for line in f if "decoder: " in line]
     log(f"  metrics.jsonl: {len(step_rows)} step rows with every CP2 step key, "
         f"{len(epoch_rows)} epoch rows; decoder {decoder[0]}")
+    figures = {epoch: pretrain_figures(run_dir, epoch) for epoch in range(CLI_EPOCHS + 1)}
+    log(f"  --visual-freq 1 (the default): each epoch's figures written and decoded by PIL: "
+        f"{figures}")
 
     # epoch 1 (after cuDNN's first choices and the allocator's growth): step
     # calls by kind, leaving out the epoch's first step, which starts while
@@ -1015,7 +1081,7 @@ def check_cli(dl):
         quiet_ms_median=statistics.median(quiet), logged_ms_median=statistics.median(logged),
         epoch_first_step_ms=start[1] * 1e3, half_epoch_medians_ms=halves, images_per_s=ips,
         images_per_s_without_epoch_start=ips_rest, peak_bytes=peak, decoder=decoder[0], probe=probe,
-        resume_launches=resume_launches)
+        resume_launches=resume_launches, figures=figures)
 
 
 # ---------------------------------------------------------------------------
@@ -1222,13 +1288,16 @@ def augmentation_layout():
     return "".join("NHWC"[d] for d in order)
 
 
-def check_unet_kernel_on_step_features(dl, state):
-    """Phase 5's check at S² = 784: the kernel against the plain version on
-    the UNET_TRUNCATED state's own dense features."""
-    batch = pre_augmented_batch(32, 224, 0, "cuda")
-    q, k, a, b = dense_features(state, batch, 8)
-    if tuple(q.shape) != (32, 784, 128):
-        raise SystemExit(f"UNET_TRUNCATED dense features {tuple(q.shape)}, want (32, 784, 128)")
+def check_unet_kernel_on_step_features(dl, state, name="UNET_TRUNCATED", hw=224, stride=8):
+    """Phase 5's check on a U-Net state's own dense features at batch 32:
+    the kernel against the plain version (UNET_TRUNCATED at 224², S² =
+    784, in phase 9; UNET_ENCODER_ONLY at 512², S² = 256, for lemon.sh in
+    phase 19)."""
+    batch = pre_augmented_batch(32, hw, 0, "cuda")
+    q, k, a, b = dense_features(state, batch, stride)
+    want = (32, (hw // stride) ** 2, 128)
+    if tuple(q.shape) != want:
+        raise SystemExit(f"{name} dense features {tuple(q.shape)}, want {want}")
     qg = q.detach().clone().requires_grad_()
     loss = dl.dense_pair_loss(qg, k, a, b, 1.0)
     loss.backward()
@@ -1237,7 +1306,7 @@ def check_unet_kernel_on_step_features(dl, state):
     ref.backward()
     err_loss = abs(loss.item() - ref.item()) / abs(ref.item())
     err_dq = max_rel(qg.grad, qr.grad)
-    log(f"    UNET_TRUNCATED features (32, 784, 128): kernel loss {loss.item():.6f} plain "
+    log(f"    {name} features {want}: kernel loss {loss.item():.6f} plain "
         f"{ref.item():.6f} (rel {err_loss:.2e}), dq max rel {err_dq:.2e}")
     if err_loss > F32_TOL["loss_rtol"] or err_dq > F32_TOL["grad_rtol"]:
         raise SystemExit("kernel disagrees with the plain version on the U-Net's features")
@@ -1633,6 +1702,51 @@ def eval_seconds(rows, evals_per_epoch):
     return out
 
 
+def finetune_checks(args, test_metrics, rows, reports, launches, want_loaded=None):
+    """What every finetune run of phases 11 and 19 must show: the graft
+    loaded tensors (``want_loaded`` of them, where given), finite losses,
+    the monitored key in each epoch's row of ``metrics.jsonl``, one best
+    checkpoint left, the test keys, no dense-loss launch, and epoch 0's
+    overlay grid decoded where ``--visualize_freq`` asks for it.  Returns
+    (problems, monitor key, epoch rows, best checkpoints, overlay's
+    (height, width) or None)."""
+    from cp2_tpu_torch.ops import metrics
+
+    run_dir = os.path.join(args.log_dir, args.run_id)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        metric_rows = [json.loads(line) for line in f]
+    binary = args.num_classes == 2
+    monitor = "val_BinaryJaccardIndex" if binary else "val_MulticlassJaccardIndex"
+    want_test = {f"test_{k}" for k in metrics.compute_metrics(
+        metrics.ConfusionState.create(args.num_classes), binary=binary,
+        ignore_index=None if binary else 0)} | {"test_loss"}
+    epoch_rows = [r for r in metric_rows if "epoch" in r]
+    best = [d for d in os.listdir(run_dir) if d.isdigit()]
+    loaded = len(reports[0]["loaded"]) if reports else 0
+    problems = []
+    if not loaded or (want_loaded is not None and loaded != want_loaded):
+        problems.append(f"the graft loaded {loaded} tensors"
+                        + (f", want {want_loaded}" if want_loaded is not None else ""))
+    if not rows or not all(math.isfinite(r[-1]) for r in rows):
+        problems.append(f"losses {[r[-1] for r in rows]}")
+    if not epoch_rows or any(not math.isfinite(r.get(monitor, math.nan)) for r in epoch_rows):
+        problems.append(f"{monitor} missing from metrics.jsonl")
+    if len(best) != 1:
+        problems.append(f"{len(best)} checkpoints left: {best}")
+    if set(test_metrics) != want_test or not all(math.isfinite(v) for v in test_metrics.values()):
+        problems.append(f"test keys {sorted(test_metrics)}")
+    if any(v != 0 for v in launches.values()):
+        problems.append(f"dense-loss launches {launches}")
+    overlay = None
+    if args.visualize_freq > 0:
+        path = os.path.join(run_dir, "visuals", "segmentations_epoch_0000.png")
+        if os.path.exists(path):
+            overlay = decoded_png(path)
+        else:
+            problems.append(f"no overlay at {path}")
+    return problems, monitor, epoch_rows, best, overlay
+
+
 def run_finetune(finetune, argv, clock, reports):
     args = finetune.get_args(argv)
     clock.rows = []
@@ -1644,7 +1758,6 @@ def run_finetune(finetune, argv, clock, reports):
 def check_finetune_cli(dl):
     """Phase 11; returns the launches by run and the runs' numbers."""
     from cp2_tpu_torch.checkpoint import convert
-    from cp2_tpu_torch.ops import metrics
     from cp2_tpu_torch.train import finetune, segmentation_task
     import cp2_tpu_torch
 
@@ -1671,9 +1784,8 @@ def check_finetune_cli(dl):
     clock = FinetuneClock(segmentation_task.make_seg_steps)
     segmentation_task.make_seg_steps = clock
     convert.load_pretrained_into_segmentor = recording_load
-    common = ["--config", config, "--batch_size", str(FT_BATCH), "--visualize_freq", "0",
-              "--prefetch_depth", "2", "--pretrain_type", "CP2", "--pretrain_path", pretrain_run,
-              "--log_dir", logs]
+    common = ["--config", config, "--batch_size", str(FT_BATCH), "--prefetch_depth", "2",
+              "--pretrain_type", "CP2", "--pretrain_path", pretrain_run, "--log_dir", logs]
     runs = {
         "polyp": ["--run_id", "polyp", "--img_dirs", os.path.join(polyp, "images"),
                   "--mask_dirs", os.path.join(polyp, "masks"), "--epochs", str(FT_EPOCHS)],
@@ -1696,33 +1808,13 @@ def check_finetune_cli(dl):
             launches[run] = dict(dl.LAUNCHES)  # read just after the run
             peak = torch.cuda.max_memory_allocated()
             rows = list(clock.rows)
-            run_dir = os.path.join(logs, args.run_id)
-            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-                metric_rows = [json.loads(line) for line in f]
             classes = args.num_classes
-            monitor = "val_BinaryJaccardIndex" if classes == 2 else "val_MulticlassJaccardIndex"
-            binary = classes == 2
-            want_test = {f"test_{k}" for k in metrics.compute_metrics(
-                metrics.ConfusionState.create(classes), binary=binary,
-                ignore_index=None if binary else 0)} | {"test_loss"}
-            epoch_rows = [r for r in metric_rows if "epoch" in r]
-            best = [d for d in os.listdir(run_dir) if d.isdigit()]
             train_rows = [r for r in rows if r[0] == "train"]
-            problems = []
-            if not reports or not reports[0]["loaded"]:
-                problems.append("the graft loaded no tensor")
-            if not all(math.isfinite(r[-1]) for r in rows):
-                problems.append(f"losses {[r[-1] for r in rows]}")
-            if not epoch_rows or any(not math.isfinite(r.get(monitor, math.nan)) for r in epoch_rows):
-                problems.append(f"{monitor} missing from metrics.jsonl")
-            if len(best) != 1:
-                problems.append(f"{len(best)} checkpoints left: {best}")
-            if set(test_metrics) != want_test or not all(math.isfinite(v) for v in test_metrics.values()):
-                problems.append(f"test keys {sorted(test_metrics)}")
-            if any(v != 0 for v in launches[run].values()):
-                problems.append(f"dense-loss launches {launches[run]}")
+            problems, monitor, epoch_rows, best, overlay = finetune_checks(
+                args, test_metrics, rows, reports, launches[run])
             numbers[run] = dict(
-                flags=flags, img_hw=[args.img_height, args.img_width], classes=classes,
+                overlay_hw=overlay, flags=flags, img_hw=[args.img_height, args.img_width],
+                classes=classes,
                 batch=args.batch_size, loaded_tensors=len(reports[0]["loaded"]) if reports else 0,
                 train_step_ms=[r[1] * 1e3 for r in train_rows],
                 train_gap_ms=[r[2] * 1e3 for r in train_rows],
@@ -1750,8 +1842,10 @@ def check_finetune_cli(dl):
                 f"phase 7's CP2 checkpoint; losses {['%.4f' % r[-1] for r in train_rows]}; "
                 f"{monitor} {[round(r.get(monitor, math.nan), 4) for r in epoch_rows]}; test "
                 f"{test_metrics.get('test_BinaryJaccardIndex', test_metrics.get('test_MulticlassJaccardIndex')):.4f}; "
-                f"best checkpoint {best}; peak {peak / 2**30:.2f} GiB; dense-loss launches "
-                f"{launches[run]}; run {wall:.1f} s {'ok' if not problems else 'FAIL: ' + '; '.join(problems)}")
+                f"best checkpoint {best}; overlay (epoch 0, --visualize_freq "
+                f"{args.visualize_freq}) {overlay}; peak {peak / 2**30:.2f} GiB; dense-loss "
+                f"launches {launches[run]}; run {wall:.1f} s "
+                f"{'ok' if not problems else 'FAIL: ' + '; '.join(problems)}")
             if problems:
                 raise SystemExit(f"phase 11: {run}: {'; '.join(problems)}")
             torch.cuda.empty_cache()
@@ -3099,7 +3193,520 @@ def check_dist():
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the experiment drivers (cp2_tpu_torch/scripts/*.sh)
+# ---------------------------------------------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SCRIPTS_WORK = os.path.join("work_dirs", "chip_smoke_scripts")
+PORT_SCRIPTS = os.path.join(HERE, "cp2_tpu_torch", "scripts")
+JAX_SCRIPTS = os.path.join(HERE, "scripts")
+DRIVERS = ("ablation.sh", "combined.sh", "densecl.sh", "hist.sh", "imgnet-pretrained.sh",
+           "lemon.sh", "lemon-cutpaste.sh", "neg_sampling_exp.sh", "polyp.sh",
+           "polyp-cutpaste.sh", "proposed.sh", "same-foreground.sh", "sym-coord.sh")
+KINDS = ("PRETRAIN", "FINETUNE", "MIRROR")
+SCRIPT_STEPS = 3  # each pretrain run: --epochs 1 --max_steps 3 over 3 batches of images
+# one synthetic ``.pth`` per key layout that checkpoint/convert.py tells apart:
+# torchvision's, MoCo's ``module.encoder_q.`` and PixPro's ``module.encoder.``
+IMGNET_LAYOUTS = {"CP2_IMGNET": "", "MOCO_IMGNET": "module.encoder_q.",
+                  "PIXPRO_IMGNET": "module.encoder."}
+
+
+def listed_frames(directory, count, hw, seed):
+    """``synthetic_frames`` under ``directory``, listed by its ``train.csv``
+    too (the CSV layout of hist.sh and lemon.sh)."""
+    paths, _ = synthetic_frames(directory, count, hw, seed)
+    with open(os.path.join(directory, "train.csv"), "w") as f:
+        f.write("\n".join(os.path.basename(p) for p in paths) + "\n")
+    return paths
+
+
+def torchvision_layout(backbone):
+    """The port's ResNet state dict (keys relative to the backbone) in
+    torchvision's naming: the inverse of
+    ``checkpoint.convert.torchvision_resnet_to_state_dict``."""
+    out = {}
+    for key, value in backbone.items():
+        parts = key.split(".")
+        if parts[0] == "conv1":
+            name = "conv1.weight" if parts[1] == "conv" else f"bn1.{parts[-1]}"
+        else:
+            stage, block = parts[0][len("layer"):].split("_")
+            base, mod = f"layer{stage}.{block}", parts[1]
+            if mod in ("conv1", "conv2"):
+                name = (f"{base}.{mod}.weight" if parts[2] == "conv"
+                        else f"{base}.bn{mod[-1]}.{parts[-1]}")
+            elif mod == "conv3":
+                name = f"{base}.conv3.weight"
+            elif mod == "norm3":
+                name = f"{base}.bn3.{parts[-1]}"
+            else:  # downsample.conv / downsample.norm
+                name = f"{base}.downsample.{0 if parts[2] == 'conv' else 1}.{parts[-1]}"
+        out[name] = value
+    return out
+
+
+def imgnet_checkpoints(directory, config):
+    """``<TYPE>.pth`` for each of ``IMGNET_LAYOUTS``: ``config``'s ResNet
+    initialised from a seed (one seed a file), in torchvision's names under
+    the layout's prefix, beside keys the graft must leave alone (a
+    classifier; MoCo's key encoder). Returns the parameters a graft must
+    load from each."""
+    from cp2_tpu_torch.checkpoint import convert
+    from cp2_tpu_torch.config import Config
+    from cp2_tpu_torch.models import build_segmentor
+    from cp2_tpu_torch.models.layers import init_flax_like_
+    from cp2_tpu_torch.types import PretrainType
+
+    cfg = Config.fromfile(config)
+    cfg.model.decode_head.num_classes = 2
+    os.makedirs(directory, exist_ok=True)
+    params = {}
+    for i, (ptype, prefix) in enumerate(IMGNET_LAYOUTS.items()):
+        model = init_flax_like_(build_segmentor(dict(cfg.model)),
+                                torch.Generator().manual_seed(100 + i))
+        backbone = {k[len("backbone."):]: v for k, v in model.state_dict().items()
+                    if k.startswith("backbone.") and v.is_floating_point()}
+        tv = torchvision_layout(backbone)
+        if convert.torchvision_resnet_to_state_dict(tv).keys() != backbone.keys():
+            raise SystemExit(f"phase 19: the torchvision layout of {config}'s ResNet does "
+                             "not convert back to its keys")
+        state = {prefix + k: v for k, v in tv.items()}
+        state[prefix + "fc.weight"] = torch.zeros(10, 2048)
+        if prefix == "module.encoder_q.":
+            state.update({"module.encoder_k." + k: torch.zeros_like(v) for k, v in tv.items()})
+        group = ([t for t in convert.MOCO_PREFIX_TYPES] if prefix == "module.encoder_q." else
+                 [t for t in convert.PIXPRO_TYPES] if prefix else
+                 [t for t in convert.IMGNET_BACKBONE_TYPES])
+        if PretrainType[ptype] not in group:
+            raise SystemExit(f"phase 19: {ptype} is not of the layout {prefix!r}")
+        torch.save({"state_dict": state} if prefix != "module.encoder." else {"model": state},
+                   os.path.join(directory, f"{ptype}.pth"))
+        params[ptype] = sum(1 for k in tv if not k.endswith(("running_mean", "running_var")))
+    return params
+
+
+def script_data():
+    """Phase 19's synthetic data under ``SCRIPTS_WORK``: for each pretrain
+    run images for exactly 3 batches at its script's batch (192 256x256 for
+    -b 64, with SAM region maps and a train.csv; 96 544x544 for -b 32, with
+    a train.csv; 576 more for combined.sh's second directory, 768 in all
+    for -b 256), the mirror frames of phase 13's kinds, the polyp and lemon
+    pairs of phase 11's kinds, the synthetic ``.pth`` files and 16 pairs
+    for the iteration CLI."""
+    import cp2_tpu_torch
+
+    root = os.path.abspath(SCRIPTS_WORK)
+    shutil.rmtree(root, ignore_errors=True)
+    d = {k: os.path.join(root, *k.split("/")) for k in (
+        "b64/images", "b32/images", "more/images", "mirror", "mirror_lemon", "pairs",
+        "lemon_pairs", "ckpts", "logs", "bash_logs", "iter", "iter_work")}
+    for path in d.values():
+        os.makedirs(path, exist_ok=True)
+    t = time.perf_counter()
+    b64 = listed_frames(d["b64/images"], SCRIPT_STEPS * 64, (256, 256), seed=19)
+    write_region_maps(b64)
+    listed_frames(d["b32/images"], SCRIPT_STEPS * 32, (544, 544), seed=20)
+    synthetic_frames(d["more/images"], SCRIPT_STEPS * (256 - 64), seed=21)
+    csv_listed_frames(d["mirror"], {"train": 4 * MIRROR_BATCH, "val": MIRROR_BATCH + 2},
+                      (544, 544), seed=22)
+    csv_listed_frames(d["mirror_lemon"], {"train": LEMON_MIRROR_BATCH, "val": 8}, (576, 1056),
+                      seed=23)
+    synthetic_pairs(d["pairs"], FT_SPLITS, (384, 448), 2, seed=24)
+    synthetic_pairs(d["lemon_pairs"], LEMON_SPLITS, (272, 512), 12, seed=25)
+    synthetic_pairs(d["iter"], {"train": 2 * ITER_BATCH}, ITER_SRC_HW, 2, seed=26)
+    d["imgnet_params"] = imgnet_checkpoints(d["ckpts"], os.path.join(
+        os.path.dirname(cp2_tpu_torch.__file__), "configs", "config_finetune_moco.py"))
+    log(f"  data in {time.perf_counter() - t:.1f} s: {SCRIPT_STEPS * 64} frames of 256x256 with "
+        f"SAM maps and train.csv, {SCRIPT_STEPS * 32} of 544x544 with train.csv, "
+        f"{SCRIPT_STEPS * 192} more of 256x256, mirror frames, polyp and lemon pairs, "
+        f"{len(IMGNET_LAYOUTS)} .pth files ({d['imgnet_params']} parameters), "
+        f"{2 * ITER_BATCH} iteration pairs")
+    return d
+
+
+def script_env(name, d, dryrun=True):
+    """The environment a driver runs in: phase 19's directories, the
+    drivers' own EPOCHS/BATCH/BACKBONE defaults."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CP2_SCRIPT_DRYRUN", "EPOCHS", "BATCH", "BACKBONE")}
+    env.update(DATA_DIR=d["b64/images"], DATA_DIR2=d["more/images"],
+               IMG_DIR=os.path.join(d["pairs"], "images"),
+               MASK_DIR=os.path.join(d["pairs"], "masks"), CKPT_DIR=d["ckpts"],
+               LOG_DIR=d["logs"])
+    if name in ("lemon.sh", "same-foreground.sh"):
+        env["DATA_DIR"] = d["b32/images"]
+    elif name == "polyp-cutpaste.sh":
+        env["DATA_DIR"] = d["mirror"]
+    elif name == "lemon-cutpaste.sh":
+        env.update(DATA_DIR=d["mirror_lemon"], IMG_DIR=os.path.join(d["lemon_pairs"], "images"),
+                   MASK_DIR=os.path.join(d["lemon_pairs"], "masks"))
+    if dryrun:
+        env["CP2_SCRIPT_DRYRUN"] = "1"
+    return env
+
+
+def dryrun_invocations(script, env):
+    out = subprocess.run(["bash", script], env=env, capture_output=True, text=True,
+                         timeout=60)
+    if out.returncode:
+        raise SystemExit(f"phase 19: {script} exits {out.returncode} in dry-run mode:\n"
+                         f"{out.stderr[-2000:]}")
+    invocations = []
+    for line in out.stdout.splitlines():
+        kind, _, flags = line.partition("\t")
+        if kind in KINDS:
+            invocations.append((kind, shlex.split(flags)))
+    return out.stdout, invocations
+
+
+def jax_to_port(stdout):
+    """A JAX driver's dry-run output as its twin prints it: the configs
+    under ``cp2_tpu_torch/configs``, and ``config_moco.py`` given to
+    same-foreground.sh's MoCo and BYOL pretrains, whose JAX invocations
+    cannot start (see that twin)."""
+    port_configs = os.path.join(HERE, "cp2_tpu_torch", "configs") + os.sep
+    stdout = stdout.replace(os.path.join(HERE, "cp2_tpu", "configs") + os.sep, port_configs)
+    return "\n".join(
+        line + f" --config {port_configs}config_moco.py"
+        if re.match(r"^PRETRAIN\t.* --run_id same-fg-(MOCO|BYOL) ", line) else line
+        for line in stdout.split("\n"))
+
+
+def check_dryruns(d):
+    """(a): each twin's invocations equal the JAX driver's, mapped."""
+    invocations = {}
+    for name in DRIVERS:
+        env = script_env(name, d)
+        ours, inv = dryrun_invocations(os.path.join(PORT_SCRIPTS, name), env)
+        theirs, _ = dryrun_invocations(os.path.join(JAX_SCRIPTS, name), env)
+        if not inv or ours != jax_to_port(theirs):
+            raise SystemExit(f"phase 19: {name}'s twin does not print the JAX driver's "
+                             f"invocations:\n{ours}\n---\n{theirs}")
+        invocations[name] = inv
+    counts = {k: sum(kind == k for inv in invocations.values() for kind, _ in inv)
+              for k in KINDS}
+    log(f"  (a) dry runs: the {len(DRIVERS)} twins print the JAX drivers' invocations "
+        f"(configs mapped): {counts}")
+    return invocations
+
+
+def weight_loop(argvs):
+    """Whether ``argvs`` differ only in ``--run_id`` and one loss weight
+    (``--lmbd_*``): such a loop runs its first and last iteration."""
+    if len(argvs) < 3 or len({len(a) for a in argvs}) != 1:
+        return False
+    differing = {j for j in range(len(argvs[0])) if len({a[j] for a in argvs}) > 1}
+    flags = {argvs[0][j - 1] for j in differing}
+    return ("--run_id" in flags and len(flags) == 2
+            and all(f == "--run_id" or f.startswith("--lmbd_") for f in flags))
+
+
+def flag(argv, name):
+    """The value after the last ``name`` in ``argv`` (argparse's last one
+    wins), or None."""
+    at = [i for i, a in enumerate(argv) if a == name]
+    return argv[at[-1] + 1] if at else None
+
+
+def script_runs(invocations):
+    """(b)'s pretrain and mirror runs and (c)'s finetunes, as
+    (driver, kind, argv, cut) in the drivers' order."""
+    runs, finetunes = [], []
+    for name in DRIVERS:
+        inv = invocations[name]
+        pre = [argv for kind, argv in inv if kind == "PRETRAIN"]
+        if weight_loop(pre):
+            pre = [pre[0], pre[-1]]
+        runs += [(name, "PRETRAIN", argv, ["--epochs", "1", "--max_steps", str(SCRIPT_STEPS)])
+                 for argv in pre]
+        runs += [(name, "MIRROR", argv, ["--fast_dev_run"]) for kind, argv in inv
+                 if kind == "MIRROR"]
+        ft = [argv for kind, argv in inv if kind == "FINETUNE"]
+        if name == "polyp.sh":
+            finetunes += [(name, "FINETUNE", argv, ["--epochs", "2"]) for argv in ft]
+        elif name in ("hist.sh", "lemon-cutpaste.sh"):
+            finetunes += [(name, "FINETUNE", ft[0], ["--fast_dev_run"])]
+        elif name in ("same-foreground.sh", "imgnet-pretrained.sh"):
+            firsts = {}
+            for argv in ft:
+                firsts.setdefault(flag(argv, "--pretrain_type"), argv)
+            finetunes += [(name, "FINETUNE", argv, ["--fast_dev_run"])
+                          for ptype, argv in firsts.items() if ptype != "CP2"]
+    return runs, finetunes
+
+
+def run_script_pretrain(dl, clock, driver, argv, cut):
+    """One pretrain run of (b) in process, on the card; its numbers and
+    problems."""
+    from cp2_tpu_torch.data import get_pretrain_files
+    from cp2_tpu_torch.ssl.objectives import uses_dense_kernel
+    from cp2_tpu_torch.train import pretrain
+    from cp2_tpu_torch.types import PretrainType
+
+    args = pretrain.get_args(argv + cut)
+    n_files = len(get_pretrain_files(args.data_dirs, args.directory_type, "train"))
+    hp = pretrain.hparams_from_args(args, dataset_size=n_files)
+    kernel = args.pretrain_type in (PretrainType.CP2, PretrainType.PROPOSED) and \
+        uses_dense_kernel(hp)
+    want = SCRIPT_STEPS if kernel else 0
+    clock.rows = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dl.reset_launch_counts()  # this path's run starts here
+    t = time.perf_counter()
+    state = run_cli(pretrain, argv + cut, clock)
+    launches = dict(dl.LAUNCHES)  # read just after the run
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    rows = list(clock.rows)
+    run_dir = os.path.join(args.log_dir, args.run_id)
+    problems = []
+    if n_files != SCRIPT_STEPS * args.batch_size:
+        problems.append(f"{n_files} images for batch {args.batch_size}")
+    if state.step != SCRIPT_STEPS or len(rows) != SCRIPT_STEPS:
+        problems.append(f"{state.step} steps")
+    if state.queue.shape[0] != n_files:
+        problems.append(f"queue of {state.queue.shape[0]}, want {n_files} (--cap_queue)")
+    losses = [r[-1] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"losses {losses}")
+    if any(v != want for v in launches.values()):
+        problems.append(f"dense-loss launches {launches}, want {want} each")
+    if not os.path.isdir(os.path.join(run_dir, str(SCRIPT_STEPS))):
+        problems.append(f"no checkpoint {SCRIPT_STEPS} in {run_dir}")
+    figures = None
+    if args.visual_freq > 0 and args.pretrain_type in (PretrainType.CP2, PretrainType.PROPOSED):
+        figures = pretrain_figures(run_dir, 0)
+    feature_check = None
+    if driver == "lemon.sh" and not problems:
+        feature_check = check_unet_kernel_on_step_features(
+            dl, state, name="lemon.sh's UNET_ENCODER_ONLY", hw=512, stride=32)
+    quiet = [r[1] * 1e3 for r in rows if r[0] == 0]
+    ips = args.batch_size * (len(rows) - 1) / sum(r[2] for r in rows[1:]) if len(rows) > 1 \
+        else math.nan
+    numbers = dict(
+        driver=driver, kind="PRETRAIN", argv=argv, cut=cut, batch=args.batch_size,
+        img_hw=[args.img_height, args.img_width], pretrain_type=args.pretrain_type.name,
+        backbone=args.backbone_type.name, images=n_files, kernel_route=kernel,
+        step_call_ms=[r[1] * 1e3 for r in rows], step_gap_ms=[r[2] * 1e3 for r in rows],
+        step_levels=[r[0] for r in rows], losses=losses,
+        quiet_ms_median=statistics.median(quiet) if quiet else math.nan,
+        images_per_s_after_first_step=ips, peak_bytes=peak, run_wall_s=wall,
+        launches=launches, figures=figures, lemon_kernel_check=feature_check)
+    log(f"  {args.run_id:20s} {args.pretrain_type.name}/{args.backbone_type.name} "
+        f"-b {args.batch_size} {args.img_height}x{args.img_width}: losses "
+        f"{['%.4f' % x for x in losses]}; quiet step median {numbers['quiet_ms_median']:.1f} ms, "
+        f"{ips:.1f} images/s after the first step; peak {peak / 2**30:.2f} GiB; launches "
+        f"{launches} ({'kernel' if kernel else 'plain'} route); run {wall:.1f} s "
+        f"{'ok' if not problems else 'FAIL: ' + '; '.join(problems)}")
+    del state
+    return args, numbers, problems
+
+
+def run_script_mirror(dl, clock, driver, argv, cut):
+    from cp2_tpu_torch.train import mirror_pretrain
+
+    args = mirror_pretrain.get_args(argv + cut)
+    clock.rows = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dl.reset_launch_counts()  # this path's run starts here
+    t = clock.last = time.perf_counter()
+    mirror_pretrain.main(args)
+    launches = dict(dl.LAUNCHES)  # read just after the run
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    rows = list(clock.rows)
+    run_dir = os.path.join(args.log_dir, args.run_id)
+    best = sorted((x for x in os.listdir(run_dir) if x.isdigit()), key=int)
+    metas = []
+    for x in best:
+        with open(os.path.join(run_dir, x, "meta.json")) as f:
+            metas.append(json.load(f).get("pretrain_type"))
+    problems = []
+    if not rows or not all(math.isfinite(r[-1]) for r in rows):
+        problems.append(f"losses {[r[-1] for r in rows]}")
+    if not metas or set(metas) != {"MIRROR"}:
+        problems.append(f"checkpoints {best} tagged {metas}")
+    if any(v != 0 for v in launches.values()):
+        problems.append(f"dense-loss launches {launches}")
+    train = [r for r in rows if r[0] == "train"]
+    numbers = dict(driver=driver, kind="MIRROR", argv=argv, cut=cut, batch=args.batch_size,
+                   img_hw=[args.img_x_size, args.img_y_size],
+                   train_step_ms=[r[1] * 1e3 for r in train], losses=[r[-1] for r in rows],
+                   peak_bytes=peak, run_wall_s=wall, checkpoints=best, launches=launches)
+    log(f"  {args.run_id:20s} mirror {args.variant} -b {args.batch_size} "
+        f"{args.img_x_size}x{args.img_y_size}: step calls "
+        f"{['%.1f' % (r[1] * 1e3) for r in train]} ms; losses {['%.4f' % r[-1] for r in rows]}; "
+        f"checkpoints {best} tagged {metas}; peak {peak / 2**30:.2f} GiB; launches {launches}; "
+        f"run {wall:.1f} s {'ok' if not problems else 'FAIL: ' + '; '.join(problems)}")
+    return args, numbers, problems
+
+
+def run_script_finetune(dl, clock, reports, driver, argv, cut, imgnet_params):
+    from cp2_tpu_torch.train import finetune
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dl.reset_launch_counts()  # this path's run starts here
+    t = time.perf_counter()
+    test_metrics, args = run_finetune(finetune, argv + cut, clock, reports)
+    launches = dict(dl.LAUNCHES)  # read just after the run
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    rows = list(clock.rows)
+    problems, monitor, epoch_rows, best, overlay = finetune_checks(
+        args, test_metrics, rows, reports, launches,
+        want_loaded=imgnet_params.get(args.pretrain_type.name))
+    loaded = len(reports[0]["loaded"]) if reports else 0
+    train = [r for r in rows if r[0] == "train"]
+    numbers = dict(driver=driver, kind="FINETUNE", argv=argv, cut=cut, batch=args.batch_size,
+                   img_hw=[args.img_height, args.img_width], classes=args.num_classes,
+                   pretrain_type=args.pretrain_type.name, loaded_tensors=loaded,
+                   train_step_ms=[r[1] * 1e3 for r in train], losses=[r[-1] for r in train],
+                   peak_bytes=peak, run_wall_s=wall, test_metrics=test_metrics,
+                   monitor=[r.get(monitor) for r in epoch_rows], best_checkpoint=best,
+                   overlay_hw=overlay, launches=launches)
+    log(f"  {args.run_id:20s} finetune {args.pretrain_type.name} ratio "
+        f"{args.train_data_ratio} seed {args.seed}: loaded {loaded} tensors; "
+        f"{len(train)} steps; {monitor} {[round(r.get(monitor, math.nan), 4) for r in epoch_rows]};"
+        f" best {best}; overlay {overlay}; peak {peak / 2**30:.2f} GiB; launches {launches}; "
+        f"run {wall:.1f} s {'ok' if not problems else 'FAIL: ' + '; '.join(problems)}")
+    return args, numbers, problems
+
+
+def run_bash(cmd, env, name, timeout):
+    """``bash cmd...`` from the repository's root in a process group of its own
+    (killed whole on a timeout); its output in ``chiprun_out/``."""
+    t = time.perf_counter()
+    proc = subprocess.Popen(["bash", *cmd], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        out += f"\nkilled after {timeout} s"
+    with open(os.path.join("chiprun_out", f"chip_smoke_scripts_{name}.log"), "w") as f:
+        f.write(out)
+    return proc.returncode, time.perf_counter() - t, out
+
+
+def check_bash_drivers(d):
+    """(d): polyp-cutpaste.sh (its preflight, then the mirror CLI for one
+    epoch) and dist_train.sh (the iteration CLI, 4 iterations) for real."""
+    problems, numbers = [], {}
+    env = dict(script_env("polyp-cutpaste.sh", d, dryrun=False), EPOCHS="1",
+               LOG_DIR=d["bash_logs"])
+    rc, wall, out = run_bash([os.path.join(PORT_SCRIPTS, "polyp-cutpaste.sh")], env,
+                             "polyp-cutpaste", 600)
+    run_dir = os.path.join(d["bash_logs"], "cutpaste-polyp")
+    ckpts = sorted((x for x in os.listdir(run_dir) if x.isdigit()), key=int) \
+        if os.path.isdir(run_dir) else []
+    preflight_ok = "preflight: ok" in out
+    if rc != 0 or not ckpts or not preflight_ok:
+        problems.append(f"polyp-cutpaste.sh: exit {rc}, checkpoints {ckpts}, preflight "
+                        f"{'ok' if preflight_ok else 'missing'}")
+    numbers["polyp-cutpaste.sh"] = dict(rc=rc, wall_s=wall, checkpoints=ckpts)
+    log(f"  (d) bash polyp-cutpaste.sh (EPOCHS=1): exit {rc}, preflight "
+        f"{'ok' if preflight_ok else 'missing'}, checkpoints {ckpts}, {wall:.1f} s (output in "
+        f"chiprun_out/chip_smoke_scripts_polyp-cutpaste.log)")
+
+    cfg = iter_config(os.path.join(d["iter_work"], "example_iter_train_cut.py"), max_iters=4,
+                      interval=4)
+    env = {k: v for k, v in os.environ.items() if k != "CP2_SCRIPT_DRYRUN"}
+    env.update(TRAIN_IMG_DIR=os.path.join(d["iter"], "images"),
+               TRAIN_ANN_DIR=os.path.join(d["iter"], "masks"),
+               VAL_IMG_DIR=os.path.join(d["iter"], "images"),
+               VAL_ANN_DIR=os.path.join(d["iter"], "masks"), IMG_SIZE=str(ITER_HW),
+               BATCH=str(ITER_BATCH))
+    work = os.path.join(d["iter_work"], "run")
+    rc, wall, out = run_bash([os.path.join(PORT_SCRIPTS, "dist_train.sh"), cfg, "--work-dir",
+                              work], env, "dist_train", 300)
+    ckpts = sorted(int(x) for x in os.listdir(work) if x.isdigit()) if os.path.isdir(work) else []
+    if rc != 0 or ckpts != [4]:
+        problems.append(f"dist_train.sh: exit {rc}, checkpoints {ckpts}")
+    numbers["dist_train.sh"] = dict(rc=rc, wall_s=wall, checkpoints=ckpts)
+    log(f"  (d) bash dist_train.sh (example_iter_train.py cut to 4 iterations): exit {rc}, "
+        f"checkpoints {ckpts}, {wall:.1f} s (output in chiprun_out/"
+        f"chip_smoke_scripts_dist_train.log)")
+    return numbers, problems
+
+
+def check_scripts(dl):
+    """Phase 19; returns the launches by run and the runs' numbers."""
+    from cp2_tpu_torch.checkpoint import convert
+    from cp2_tpu_torch.train import mirror_task, pretrain, segmentation_task
+
+    t0 = time.perf_counter()
+    d = script_data()
+    invocations = check_dryruns(d)
+    runs, finetunes = script_runs(invocations)
+    keep = {flag(argv, "--pretrain_path") for _, _, argv, _ in finetunes}
+    launches, numbers = {}, {"runs": {}}
+    clock = StepClock(pretrain.make_pretrain_step)
+    mclock = FinetuneClock(mirror_task.make_mirror_steps, train_key="train_loss",
+                           eval_key="val_loss")
+    fclock = FinetuneClock(segmentation_task.make_seg_steps)
+    reports = []
+    real_load = convert.load_pretrained_into_segmentor
+
+    def recording_load(*a, **kw):
+        merged, report = real_load(*a, **kw)
+        reports.append(report)
+        return merged, report
+
+    pretrain.make_pretrain_step = clock
+    mirror_task.make_mirror_steps = mclock
+    segmentation_task.make_seg_steps = fclock
+    convert.load_pretrained_into_segmentor = recording_load
+    try:
+        log(f"  (b) {sum(k == 'PRETRAIN' for _, k, _, _ in runs)} pretrain and "
+            f"{sum(k == 'MIRROR' for _, k, _, _ in runs)} mirror runs on the drivers' argv "
+            f"(sym-coord.sh's loss-weight loop: its first and last iteration)")
+        for driver, kind, argv, cut in runs:
+            run = (run_script_pretrain if kind == "PRETRAIN" else run_script_mirror)
+            args, out, problems = run(dl, clock if kind == "PRETRAIN" else mclock, driver,
+                                      argv, cut)
+            launches[f"phase19_{args.run_id}"] = out["launches"]
+            numbers["runs"][args.run_id] = out
+            if problems:
+                raise SystemExit(f"phase 19: {args.run_id}: {'; '.join(problems)}")
+            run_dir = os.path.join(args.log_dir, args.run_id)
+            if run_dir not in keep:  # a checkpoint no finetune reads
+                shutil.rmtree(run_dir, ignore_errors=True)
+            torch.cuda.empty_cache()
+        log(f"  (c) {len(finetunes)} finetunes from (b)'s checkpoints and the synthetic .pth "
+            f"files")
+        for driver, kind, argv, cut in finetunes:
+            args, out, problems = run_script_finetune(dl, fclock, reports, driver, argv, cut,
+                                                      d["imgnet_params"])
+            launches[f"phase19_{args.run_id}"] = out["launches"]
+            numbers["runs"][args.run_id] = out
+            if problems:
+                raise SystemExit(f"phase 19: {args.run_id}: {'; '.join(problems)}")
+            shutil.rmtree(os.path.join(args.log_dir, args.run_id), ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        pretrain.make_pretrain_step = clock.make
+        mirror_task.make_mirror_steps = mclock.make
+        segmentation_task.make_seg_steps = fclock.make
+        convert.load_pretrained_into_segmentor = real_load
+    numbers["bash"], problems = check_bash_drivers(d)
+    if problems:
+        raise SystemExit(f"phase 19: {'; '.join(problems)}")
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"  phase 19: {numbers['seconds']:.1f} s; on {gpu_line()}")
+    shutil.rmtree(SCRIPTS_WORK, ignore_errors=True)
+    return launches, numbers
+
+
 COMPARE, COMPARE_ONE = "--compare", "--compare-one"
+PREFLIGHT = "--preflight"
 
 
 def compare_one() -> int:
@@ -3149,12 +3756,17 @@ def compare_trees(parent) -> int:
     return 0
 
 
-def main() -> int:
+def preflight_phases():
+    """Phases 1-4, the experiment drivers' preflight: the device, the
+    build, every kernel against its plain version at every shape, and the
+    narrow step on the card against the CPU.  Returns (card line, the
+    dense-loss module, the step shape's kernel numbers), or None without a
+    card."""
     # phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
-        return 1
+        return None
     from cp2_tpu_torch.ops import cuda_build
     from cp2_tpu_torch.ops import dense_loss as dl
 
@@ -3172,6 +3784,9 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s")
     os.makedirs("chiprun_out", exist_ok=True)
     for name, info in built.items():
+        if info["cached"]:
+            log(f"  {name}: built before, loaded from cp2_tpu_torch/_build/")
+            continue
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
         with open(os.path.join("chiprun_out", f"ptxas_{name}.txt"), "w") as f:
             f.write(info["log"])
@@ -3190,6 +3805,24 @@ def main() -> int:
     # phase 4: a narrow step on the card against the CPU
     log("small step:")
     small_step_cuda_vs_cpu()
+    return card, dl, flagship
+
+
+def preflight() -> int:
+    """``--preflight``: phases 1-4 alone (``cp2_tpu_torch/scripts/common.sh``
+    runs it before every experiment)."""
+    found = preflight_phases()
+    if found is None:
+        return 1
+    log(f"preflight: ok on {found[0]}")
+    return 0
+
+
+def main() -> int:
+    found = preflight_phases()
+    if found is None:
+        return 1
+    card, dl, flagship = found
 
     # phase 5: the full-width CP2 step
     log("full-width CP2 step:")
@@ -3246,13 +3879,19 @@ def main() -> int:
     # phase 18: more than one process
     log("more than one process:")
     dist_launches, dist = check_dist()
+
+    # phase 19: the experiment drivers
+    log("experiment drivers (cp2_tpu_torch/scripts/*.sh):")
+    script_launches, scripts = check_scripts(dl)
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
                    "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
                    "cli_variants": cli9, "finetune_augment": ft_aug, "finetune_step": ft_step,
                    "finetune_cli": ft_cli, "cutpaste": cutpaste, "mirror_step": mirror_step,
                    "mirror_cli": mirror_cli, "inference_serving": serve,
-                   "iter_narrow": iter_narrow, "iter_cli": iter_cli, "dist": dist}, f, indent=1)
+                   "iter_narrow": iter_narrow, "iter_cli": iter_cli, "dist": dist,
+                   "scripts": scripts, "kernel_times_by_shape": flagship["by_shape"]}, f,
+                  indent=1)
     log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")
 
     def by_path(name):
@@ -3271,6 +3910,7 @@ def main() -> int:
         paths.update({run: n[name] for run, n in iter_narrow_launches.items()})
         paths.update({run: n[name] for run, n in iter_launches.items()})
         paths.update({run: n[name] for run, n in dist_launches.items()})
+        paths.update({run: n[name] for run, n in script_launches.items()})
         return paths
 
     kernels = [
@@ -3285,6 +3925,8 @@ def main() -> int:
          "eager_ms": flagship["fwd_eager_ms"],
          "launches_step_phase": step_launches["dense_pair_loss_fwd"],
          "launches_by_path": by_path("dense_pair_loss_fwd"),
+         "times_by_shape": {k: {m: v for m, v in t.items() if m.startswith("fwd")}
+                            for k, t in flagship["by_shape"].items()},
          "check": "pass", "shape": list(STEP_SHAPE)},
         {"name": "dense_pair_loss_bwd", "route": "cuda",
          "source": "cp2_tpu_torch/csrc/dense_loss.cu",
@@ -3297,6 +3939,8 @@ def main() -> int:
          "eager_ms": flagship["bwd_eager_ms"],
          "launches_step_phase": step_launches["dense_pair_loss_bwd"],
          "launches_by_path": by_path("dense_pair_loss_bwd"),
+         "times_by_shape": {k: {m: v for m, v in t.items() if m.startswith("bwd")}
+                            for k, t in flagship["by_shape"].items()},
          "check": "pass", "shape": list(STEP_SHAPE)},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3316,4 +3960,6 @@ if __name__ == "__main__":
         sys.exit(compare_trees(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == COMPARE_ONE:
         sys.exit(compare_one())
+    if len(sys.argv) == 2 and sys.argv[1] == PREFLIGHT:
+        sys.exit(preflight())
     sys.exit(main())

@@ -18,13 +18,14 @@ test on the best weights.
   ``main()`` raises.
 """
 
-import importlib.util
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from cp2_tpu.checkpoint import convert as jconvert
 from cp2_tpu.ops import metrics as jm
@@ -122,13 +123,14 @@ def _jax_keys(classes, prefix):
 
 
 @pytest.mark.parametrize("case", ["polyp", "lemon", "polyp_linear_evaluation"])
-def test_fast_dev_run(data, tmp_path, case):
-    """Polyp also draws the overlay grid (``--visualize_freq 1``, where
-    matplotlib is here); the linear evaluation times its steps
+def test_fast_dev_run(data, tmp_path, case, monkeypatch):
+    """Polyp also draws the overlay grid (``--visualize_freq 1``) with
+    matplotlib unimportable; the linear evaluation times its steps
     (``--use_profiler``)."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     dataset = case.split("_")[0]
     extra = ["--linear_evaluation", "--use_profiler"] if "linear" in case else []
-    visual = case == "polyp" and importlib.util.find_spec("matplotlib") is not None
+    visual = case == "polyp"
     if visual:
         extra.append("--visualize_freq=1")
     args = _args(data, tmp_path, "r", "--pretrain_type", "NONE", "--fast_dev_run", *extra,
@@ -157,6 +159,8 @@ def test_fast_dev_run(data, tmp_path, case):
     assert rows[-1].keys() - {"_step", "_time"} == set(test_metrics)
     if visual:
         assert os.listdir(os.path.join(run_dir, "visuals")) == ["segmentations_epoch_0000.png"]
+        with Image.open(os.path.join(run_dir, "visuals", "segmentations_epoch_0000.png")) as im:
+            im.load()
         assert any("Segmentations" in r for r in rows)
     if "linear" in case:
         with open(os.path.join(run_dir, "log-finetune.txt")) as f:

@@ -1,8 +1,9 @@
 """The port stands alone: ``cp2_tpu_torch`` and ``chip_smoke.py`` import no
 JAX, flax or optax and nothing of the JAX package ``cp2_tpu``; the port
 imports no cv2, which the card machine lacks (its mmseg pipelines compute
-what cv2 computes); and every module of the port imports on a machine
-without a card."""
+what cv2 computes), and no matplotlib, which it lacks too (its figures are
+drawn with PIL); and every module of the port imports on a machine without
+a card."""
 
 import ast
 import importlib
@@ -38,6 +39,12 @@ def test_no_jax_or_reference_imports(path):
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_cv2_imports(path):
     bad = [m for m in _imported(path) if m.split(".")[0] == "cv2"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_matplotlib_imports(path):
+    bad = [m for m in _imported(path) if m.split(".")[0] in ("matplotlib", "pylab")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 

@@ -14,15 +14,16 @@ enqueue parity included.  The ``DevicePrefetcher`` and checkpoint cases
 follow ``tests/test_prefetch.py`` and ``tests/test_checkpoint_io.py``.
 """
 
-import importlib.util
 import json
 import os
+import sys
 import threading
 import time
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from _torch_port_common import narrow_unet_backbones, torch_encoder, torchvision_name
 from cp2_tpu_torch.checkpoint import (
@@ -163,10 +164,11 @@ def _rows(run_dir):
         return [json.loads(line) for line in f]
 
 
-def test_debug_run_logs_exact_epoch_means(data, tmp_path):
-    visual = importlib.util.find_spec("matplotlib") is not None
-    args = _args(data, tmp_path, "dbg", "--debug",
-                 *([] if visual else ["--visual-freq", "0"]))
+def test_debug_run_logs_exact_epoch_means(data, tmp_path, monkeypatch):
+    """At the default ``--visual-freq 1`` the epoch figures are written,
+    with matplotlib unimportable (the port renders them with PIL)."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    args = _args(data, tmp_path, "dbg", "--debug")
     assert args.batch_size == 8 and args.epochs == 1 and args.max_steps == 3
     state = pretrain.main(args, device="cpu")
     assert state.step == 3 and state.queue_ptr == 24 % state.queue.shape[0]
@@ -190,10 +192,12 @@ def test_debug_run_logs_exact_epoch_means(data, tmp_path):
     with open(os.path.join(ckpt, "meta.json")) as f:
         meta = json.load(f)
     assert meta["epoch"] == 1 and meta["pretrain_type"] == "CP2" and meta["step"] == 3
-    if visual:
-        shown = os.listdir(os.path.join(run_dir, "visuals", "epoch_0000"))
-        assert {"iou_histogram.png", "similarity_heatmaps.png",
-                "train_examples.png"} <= set(shown)
+    shown = os.listdir(os.path.join(run_dir, "visuals", "epoch_0000"))
+    assert {"iou_histogram.png", "masked_iou_histogram.png", "similarity_heatmaps.png",
+            "train_examples.png"} == set(shown)
+    for name in shown:
+        with Image.open(os.path.join(run_dir, "visuals", "epoch_0000", name)) as im:
+            im.load()
 
 
 def _flat_state(state):

@@ -184,3 +184,59 @@ def test_converter_graft_equals_the_bridge(tmp_path):
     assert_close(payload["queue"].numpy(), tree["queue"], 0.0, "queue")
     with open(out / "latest") as f:
         assert f.read() == "7"
+
+
+def test_analyze_metrics_reads_the_ports_run_directories(tmp_path, capsys):
+    """``tools/analyze_metrics.py`` (free of JAX) finds its default keys in
+    the ``metrics.jsonl`` of a port pretrain run (``--debug``, CP2) and of a
+    port finetune run (``--fast_dev_run``), both on the CPU."""
+    from PIL import Image
+
+    from cp2_tpu_torch.train import finetune, pretrain
+    from tools import analyze_metrics
+
+    r = np.random.RandomState(0)
+    for d in ("pngs", "pairs/images", "pairs/masks"):
+        (tmp_path / d).mkdir(parents=True)
+    for i in range(24):
+        Image.fromarray((r.rand(40, 48, 3) * 255).astype(np.uint8)).save(
+            tmp_path / "pngs" / f"train_img{i:02d}.png")
+    for split, count in {"train": 8, "val": 3, "test": 5}.items():
+        for i in range(count):
+            Image.fromarray((r.rand(40, 48, 3) * 255).astype(np.uint8)).save(
+                tmp_path / "pairs" / "images" / f"{split}_{i:02d}.png")
+            ids = r.randint(0, 2, (5, 6)).repeat(8, 0).repeat(8, 1) * 255
+            Image.fromarray(ids.astype(np.uint8), mode="L").save(
+                tmp_path / "pairs" / "masks" / f"{split}_{i:02d}.png")
+    (tmp_path / "tiny_pretrain.py").write_text(TINY_PRETRAIN)
+    (tmp_path / "tiny_seg.py").write_text(TINY_SEG)
+    logs = tmp_path / "logs"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        with torch.backends.mkldnn.flags(enabled=False):  # see test_torch_finetune_cli.py
+            pretrain.main(pretrain.get_args([
+                "--run_id", "pre", "--log_dir", str(logs), "--data_dirs", str(tmp_path / "pngs"),
+                "--config", str(tmp_path / "tiny_pretrain.py"), "--img_height", "32",
+                "--img_width", "32", "--num-workers", "1", "--pretrain_from_scratch",
+                "--cap_queue", "--no-bf16", "--visual-freq", "0", "--debug"]), device="cpu")
+            finetune.main(finetune.get_args([
+                "--run_id", "ft", "--log_dir", str(logs),
+                "--img_dirs", str(tmp_path / "pairs" / "images"),
+                "--mask_dirs", str(tmp_path / "pairs" / "masks"),
+                "--config", str(tmp_path / "tiny_seg.py"), "--img_height", "32",
+                "--img_width", "32", "--batch_size", "4", "--num_workers", "1", "--no-bf16",
+                "--visualize_freq", "0", "--pretrain_type", "NONE", "--fast_dev_run"]),
+                device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    capsys.readouterr()
+    analyze_metrics.main([str(logs / "pre"), str(logs / "ft")])
+    out = capsys.readouterr()
+    assert "[warn]" not in out.err
+    sections = dict(part.split(" ==\n", 1) for part in out.out.split("\n== ")[1:])
+    found = {run: {line.split()[0] for line in body.splitlines() if line.strip()}
+             for run, body in sections.items()}
+    keys = analyze_metrics.DEFAULT_KEYS
+    assert found["pre"] == {k for k in keys if k.startswith("train/")}
+    assert found["ft"] == {k for k in keys if not k.startswith("train/")}
