@@ -181,6 +181,27 @@ Phases, in order; any failure exits non-zero:
             0 with its checkpoint.  In-process runs add their launches to
             ``launches_by_path``; the two bash runs count theirs in their
             own processes.
+20. tools   the measuring tools, each as a user runs it (``python -m ...``, a
+            process of its own, so phase 1's TF32 setting stays here) at its
+            JAX twin's defaults with its steps cut: ``cp2_tpu_torch.bench``
+            (32 x 224², its end-to-end phases through the loader the CLI
+            would choose), ``tools.bench_pretrain_variant`` for DENSECL,
+            MOCO, BYOL, PROPOSED and PROPOSED_V2, ``tools.bench_finetune``,
+            ``tools.bench_infer``, ``tools.bench_metrics --full-step``,
+            ``tools.bench_dense_loss`` (S² 1024, batches 8 to 256: the
+            kernel with dk against the plain version at each),
+            ``tools.bench_dilated_conv``, ``tools.profile_step`` for both
+            tasks, ``python -m cp2_tpu_torch.graft_entry`` (the dry run's
+            two gloo ranks on the card) and ``graft_entry.entry()`` here;
+            the five variants share one process, and so do profile_step's
+            two tasks (each tool's ``main`` in turn).  Each exits 0 with a
+            JSON line, rates above 0, ``mfu`` in (0, 1], each counted step's
+            FLOPs equal to the count of its configuration on the CPU (meta
+            device), the dense-loss kernels once forward and once backward
+            per step on the kernel route (``KERNEL_ROUTE``) and never
+            elsewhere, against the steps each run counted where they ran
+            (its ``LAUNCHES`` line); output in
+            ``chiprun_out/chip_smoke_tools_*.log``.
 
 ``python3 chip_smoke.py --preflight`` runs phases 1-4 alone, as the
 experiment drivers' ``preflight`` does; it exits non-zero on any failure.
@@ -188,10 +209,12 @@ experiment drivers' ``preflight`` does; it exits non-zero on any failure.
 Phases 16 and 17 run the CLI with PyTorch's default backends (cuDNN
 convolutions in TF32, matrix products in float32), as a user runs it.
 
-``python3 chip_smoke.py --compare <dir>`` times phase 5's step and phases
-16-17's runs of the package in ``<dir>`` (another commit, unpacked) and of
-this one in turns (parent, change, change, parent), each in a process of
-its own, and writes ``chiprun_out/compare.json``.
+``python3 chip_smoke.py --compare <dir>`` times phase 5's step, phases
+16-17's runs and ``cp2_tpu_torch.bench``'s device-only rate (without its
+end-to-end phases; ``null`` for a tree that has no such module) of the
+package in ``<dir>`` (another commit, unpacked) and of this one in turns
+(parent, change, change, parent), each in a process of its own, and
+writes ``chiprun_out/compare.json``.
 
 The last lines are one JSON object on the kernels (with their launches on
 every path), the card's name and power limit, and
@@ -3705,13 +3728,176 @@ def check_scripts(dl):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the measuring tools (twins of bench.py, tools/bench_*.py,
+# tools/profile_step.py and __graft_entry__.py)
+# ---------------------------------------------------------------------------
+
+TOOLS_WORK = os.path.join("work_dirs", "chip_smoke_tools")
+# each tool at its JAX defaults (widths and batches); only its steps are cut
+TOOL_STEPS = ["--steps", "10", "--warmup", "2"]
+VARIANTS = ("DENSECL", "MOCO", "BYOL", "PROPOSED", "PROPOSED_V2")
+TOOL_RUNS = [  # (names, module, one argument list per name, environment)
+    (["bench"], "cp2_tpu_torch.bench", [[]],
+     {"BENCH_STEPS": "20", "BENCH_WARMUP": "3", "BENCH_E2E_STEPS": "10",
+      "BENCH_E2E_REPEATS": "2"}),
+    # the five variants in one process: they share its start-up
+    ([f"bench_pretrain_variant_{v}" for v in VARIANTS],
+     "cp2_tpu_torch.tools.bench_pretrain_variant",
+     [["--variant", v, *TOOL_STEPS] for v in VARIANTS], {}),
+    (["bench_finetune"], "cp2_tpu_torch.tools.bench_finetune", [TOOL_STEPS], {}),
+    (["bench_infer"], "cp2_tpu_torch.tools.bench_infer", [["--steps", "10"]], {}),
+    (["bench_metrics"], "cp2_tpu_torch.tools.bench_metrics", [["--full-step", "--steps", "10"]],
+     {}),
+    (["bench_dense_loss"], "cp2_tpu_torch.tools.bench_dense_loss", [["--steps", "10"]], {}),
+    (["bench_dilated_conv"], "cp2_tpu_torch.tools.bench_dilated_conv", [[]], {}),
+    (["profile_step_pretrain", "profile_step_finetune"], "cp2_tpu_torch.tools.profile_step",
+     [["--steps", "3", "--out", os.path.join(TOOLS_WORK, "profile_pretrain")],
+      ["--task", "finetune", "--steps", "3", "--out",
+       os.path.join(TOOLS_WORK, "profile_finetune")]], {}),
+    # the dry run's ranks on the card, gloo (NCCL refuses two ranks on one card)
+    (["graft_entry_dryrun"], "cp2_tpu_torch.graft_entry", [[]], {"GRAFT_DRYRUN_DEVICES": "2"}),
+]
+# the runs whose steps take the dense-loss kernels, once forward and once
+# backward a step: the CP2 step, and PROPOSED at its defaults (unit
+# weights, no negative reshaping, the dense loss of CP2); bench_dense_loss's
+# steps are its kernel calls.  Every other run launches them no time.
+KERNEL_ROUTE = {"bench", "bench_pretrain_variant_PROPOSED", "bench_metrics",
+                "bench_dense_loss", "profile_step_pretrain", "graft_entry_dryrun"}
+
+
+def run_tool(names, module, argvs, env_extra, timeout=300, cwd=HERE):
+    """``module``'s runs from the repository's root, in a process of their
+    own (phase 1's TF32 setting stays here): ``python -m module args`` as a
+    user runs it for one run, its ``main`` on each argument list in turn
+    for several.  Its output goes to ``chiprun_out/``.  Returns ({name:
+    (the run's JSON line, its ``LAUNCHES`` line)}, seconds); a failure
+    fails the phase."""
+    from cp2_tpu_torch.utils.benchmarking import LAUNCH_TAG
+
+    if len(argvs) == 1:
+        cmd = [sys.executable, "-m", module, *argvs[0]]
+    else:
+        cmd = [sys.executable, "-c",
+               f"import gc, torch; from {module} import main\n"
+               f"for argv in {argvs!r}:\n"
+               "    main(argv); gc.collect(); torch.cuda.empty_cache()"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=cwd, env={**os.environ, **env_extra}, capture_output=True,
+                          text=True, timeout=timeout)
+    seconds = time.perf_counter() - t
+    with open(os.path.join("chiprun_out", f"chip_smoke_tools_{names[0]}.log"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    lines = proc.stdout.strip().splitlines()
+    # each run: its LAUNCHES line, then its JSON line (the first after it)
+    runs = []
+    for i, line in enumerate(lines):
+        if line.startswith(LAUNCH_TAG + " "):
+            out = next((x for x in lines[i + 1:] if x.startswith("{")), None)
+            runs.append((out, line.split(" ", 1)[1]))
+    if proc.returncode or len(runs) != len(names) or None in (o for o, _ in runs) or (
+            not lines[-1].startswith("{")):
+        raise SystemExit(f"phase 20: {names} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                         f"{proc.stderr[-3000:]}")
+    return {name: (json.loads(out), json.loads(launch))
+            for name, (out, launch) in zip(names, runs)}, seconds
+
+
+def check_tools():
+    """Phase 20: every measuring tool on the card as a user runs it, in
+    processes of their own at its JAX defaults (steps cut); rates above 0,
+    ``mfu`` in (0, 1], each counted step's FLOPs equal to the count from its
+    configuration on the CPU (meta device, no step run), the dense-loss
+    kernel against its plain version at bench_dense_loss's five batches
+    (the tool fails otherwise), the kernels' launches per path against the
+    steps each run counted, the dry run's two ranks on the card, and the
+    flagship forward of ``graft_entry.entry()``.  Returns (launches by
+    path, numbers)."""
+    from cp2_tpu_torch.graft_entry import entry
+    from cp2_tpu_torch.tools import bench_finetune, bench_pretrain_variant
+    from cp2_tpu_torch.utils.benchmarking import model_config
+
+    t0 = time.perf_counter()
+    os.makedirs(TOOLS_WORK, exist_ok=True)
+    launches, numbers, problems = {}, {}, []
+    for names, module, argvs, env in TOOL_RUNS:
+        runs, secs = run_tool(names, module, argvs, env)
+        log(f"  {', '.join(names)}: {secs:.1f} s in one process")
+        for name, (out, launch) in runs.items():
+            numbers[name] = {"process_seconds": secs, **out}
+            launches[f"phase20_{name}"] = {k: launch[k] for k in
+                                           ("dense_pair_loss_fwd", "dense_pair_loss_bwd")}
+            want = launch["steps"] if name in KERNEL_ROUTE else 0
+            if launch["steps"] <= 0 or launch["dense_pair_loss_fwd"] != want or \
+                    launch["dense_pair_loss_bwd"] != want:
+                problems.append(f"{name}: launches {launch}, want {want} each")
+            log(f"    {name}: {json.dumps(out)[:400]}")
+    b = numbers["bench"]
+    counts = {"bench": (b["model_flops_per_step"], bench_pretrain_variant.step_flops(
+        model_config("config_pretrain.py"), "CP2", "DEEPLABV3", 32, 224))}
+    for v in VARIANTS:
+        counts[f"bench_pretrain_variant_{v}"] = (
+            numbers[f"bench_pretrain_variant_{v}"]["model_flops_per_step"],
+            bench_pretrain_variant.step_flops(
+                model_config(bench_pretrain_variant.config_name(v)), v, "DEEPLABV3", 32, 224))
+    counts["bench_finetune"] = (numbers["bench_finetune"]["model_flops_per_step"],
+                                bench_finetune.step_flops(model_config("config_finetune.py"), 2,
+                                                          16, 352))
+    for name, (card_count, meta_count) in counts.items():
+        if card_count != meta_count:
+            problems.append(f"{name}: the card counted {card_count} FLOPs a step, the "
+                            f"configuration {meta_count}")
+        share = numbers[name]["mfu"]
+        if not (share is not None and 0 < share <= 1 and numbers[name]["value"] > 0):
+            problems.append(f"{name}: rate {numbers[name]['value']}, mfu {share}")
+    if b["e2e_ips"] is None or b["e2e_ips"] <= 0:
+        problems.append(f"bench: end-to-end rate {b['e2e_ips']}")
+    inf = numbers["bench_infer"]
+    if not (inf["whole_images_per_sec"] > 0 and inf["slide_images_per_sec"] > 0):
+        problems.append(f"bench_infer: {inf}")
+    if not all(v > 0 for v in numbers["bench_metrics"]["ms"].values()):
+        problems.append(f"bench_metrics: {numbers['bench_metrics']['ms']}")
+    dense = numbers["bench_dense_loss"]["by_batch"]
+    if sorted(dense, key=int) != ["8", "32", "64", "128", "256"] or not all(
+            r["kernel_ms"] > 0 and r["loss_rel"] <= F32_TOL["loss_rtol"]
+            and max(r["dq_rel"], r["dk_rel"]) <= F32_TOL["grad_rtol"] for r in dense.values()):
+        problems.append(f"bench_dense_loss: {dense}")
+    for name in ("profile_step_pretrain", "profile_step_finetune"):
+        if not numbers[name]["busy_share"] or numbers[name]["device_ms"] <= 0:
+            problems.append(f"{name}: {numbers[name]}")
+    if numbers["profile_step_pretrain"]["dense_loss_ms"] <= 0:
+        problems.append("profile_step: no dense-loss kernel time in the pretrain trace")
+    dry = numbers["graft_entry_dryrun"]
+    if dry["n_processes"] != 2 or len(dry["losses"]) != 2 or not all(
+            math.isfinite(x) for x in dry["losses"]) or dry["device"] == "cpu":
+        problems.append(f"graft_entry dry run: {dry}")
+    fn, args = entry()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    numbers["graft_entry"] = {"shape": list(y.shape), "dtype": str(y.dtype)}
+    if tuple(y.shape) != (2, 14, 14, 128) or y.dtype != torch.bfloat16 or not bool(
+            torch.isfinite(y).all()):
+        problems.append(f"graft_entry.entry(): {tuple(y.shape)} {y.dtype}")
+    del fn, args, y
+    numbers["flops_card_vs_configuration"] = counts
+    shutil.rmtree(TOOLS_WORK, ignore_errors=True)
+    if problems:
+        raise SystemExit(f"phase 20: {'; '.join(problems)}")
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"  phase 20: {numbers['seconds']:.1f} s; bench {b['device_ips']} images/s device-only, "
+        f"{b['e2e_ips']} end to end ({b['loader']} loader), mfu {b['mfu']}, "
+        f"{b['model_flops_per_step']} FLOPs a step; on {gpu_line()}")
+    return launches, numbers
+
+
 COMPARE, COMPARE_ONE = "--compare", "--compare-one"
 PREFLIGHT = "--preflight"
 
 
 def compare_one() -> int:
     """In the tree that is the working directory (its ``cp2_tpu_torch``):
-    phase 5's step and phases 16-17's runs; one ``COMPARE {json}`` line."""
+    phase 5's step, phases 16-17's runs and the bench's device-only rate;
+    one ``COMPARE {json}`` line."""
     if not torch.cuda.is_available():
         return 1
     sys.path.insert(0, os.getcwd())
@@ -3724,7 +3910,13 @@ def compare_one() -> int:
     cuda_build.build(["dense_loss"])
     _, step = full_step(dl)
     _, runs = check_iter_cli(dl)
-    log("COMPARE " + json.dumps({"step_ms": step["median_step_ms"], **{
+    bench_ips = None
+    if os.path.exists(os.path.join("cp2_tpu_torch", "bench.py")):
+        runs, _ = run_tool(["bench"], "cp2_tpu_torch.bench", [[]], {"BENCH_E2E": "0"},
+                           cwd=os.getcwd())
+        bench_ips = runs["bench"][0]["device_ips"]
+    log("COMPARE " + json.dumps({"step_ms": step["median_step_ms"],
+                                 "bench_device_ips": bench_ips, **{
         f"{k}_iter_ms": v["iter_ms_median_after_5"] for k, v in runs.items()
         if isinstance(v, dict) and "iter_ms_median_after_5" in v}}))
     return 0
@@ -3883,6 +4075,11 @@ def main() -> int:
     # phase 19: the experiment drivers
     log("experiment drivers (cp2_tpu_torch/scripts/*.sh):")
     script_launches, scripts = check_scripts(dl)
+
+    # phase 20: the measuring tools
+    log("measuring tools (twins of bench.py, tools/bench_*.py, tools/profile_step.py, "
+        "__graft_entry__.py):")
+    tool_launches, tools = check_tools()
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
                    "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
@@ -3890,7 +4087,8 @@ def main() -> int:
                    "finetune_cli": ft_cli, "cutpaste": cutpaste, "mirror_step": mirror_step,
                    "mirror_cli": mirror_cli, "inference_serving": serve,
                    "iter_narrow": iter_narrow, "iter_cli": iter_cli, "dist": dist,
-                   "scripts": scripts, "kernel_times_by_shape": flagship["by_shape"]}, f,
+                   "scripts": scripts, "tools": tools,
+                   "kernel_times_by_shape": flagship["by_shape"]}, f,
                   indent=1)
     log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")
 
@@ -3898,7 +4096,8 @@ def main() -> int:
         """Launches of one kernel on every path the script drives: the
         pretrain step's paths, and the finetune, mirror, inference,
         serving and iteration-CLI paths, which run no dense-loss kernel;
-        and phase 18's runs, each rank's counted in that rank's process."""
+        and phase 18's runs, each rank's counted in that rank's process, and
+        phase 20's tools, each counted in its own process."""
         paths = {"phase5_step": step_launches[name], "phase7_cli_CP2": launches[name]}
         paths.update({f"phase8_{case}": n[name] for case, n in variant_launches.items()})
         paths.update({f"phase9_cli_{run}": n[name] for run, n in cli9_launches.items()})
@@ -3911,6 +4110,7 @@ def main() -> int:
         paths.update({run: n[name] for run, n in iter_launches.items()})
         paths.update({run: n[name] for run, n in dist_launches.items()})
         paths.update({run: n[name] for run, n in script_launches.items()})
+        paths.update({run: n[name] for run, n in tool_launches.items()})
         return paths
 
     kernels = [

@@ -17,10 +17,13 @@ big·big + big·small + small·big summed in float32 — which keeps float32's
 accuracy (one TF32 pass is ten times outside the gradient tolerance).
 ``tf32x3_einsum`` is that arithmetic in plain PyTorch, for the CPU tests.
 
-``dense_pair_loss`` launches the kernel for CUDA tensors (and raises if
-it cannot build or launch) and takes the plain einsum formula only for
-CPU tensors.  ``LAUNCHES`` counts kernel launches, one per forward and
-one per backward call.
+``dense_pair_loss`` launches the kernels for CUDA tensors (and raises if
+they cannot build or launch) and takes their plain versions only for CPU
+tensors: the factorized forward and the analytic backward from the saved
+``lse``, the algebra the kernels implement.  Both routes are one pair of
+``torch.library`` custom ops, so a FLOP counter counts the loss by its
+formula, whichever route runs.  ``LAUNCHES`` counts kernel launches, one
+per forward and one per backward call.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from cp2_tpu_torch.ops import cuda_build
 
@@ -263,29 +267,112 @@ def bwd_kernel(q16, k16, a, b, lse, grad, temperature: float, *,
     return dq, dk
 
 
-class _DensePairLossCUDA(torch.autograd.Function):
-    """Forward and backward are the CUDA kernels of ``csrc/dense_loss.cu``."""
+# ---------------------------------------------------------------------------
+# the entry: one pair of custom ops on every device
+# ---------------------------------------------------------------------------
+#
+# Forward and backward are ``torch.library`` custom ops with a kernel for
+# each device: on CUDA tensors the hand-written kernels above, on CPU
+# tensors their plain versions (``dense_pair_loss_factorized`` and
+# ``dense_pair_loss_backward``), and on the meta device shapes alone.  A
+# FLOP counter (``utils/flops.py``) sees each call as one op whatever the
+# device, and counts it by the formulas registered below, so a count does
+# not depend on the route.
 
-    @staticmethod
-    def forward(ctx, q, k, mask_a, mask_b, temperature, compute_dtype):
-        operands = prepare_operands(q, k, mask_a, mask_b, compute_dtype)
-        loss, lse = fwd_kernel(*operands, temperature)
-        ctx.save_for_backward(*operands, lse)
-        ctx.temperature = temperature
-        ctx.shape_dtypes = (q.shape[-1], q.dtype, k.dtype)
-        return loss
+@torch.library.custom_op("cp2_torch::dense_pair_loss", mutates_args=())
+def _loss_op(q: torch.Tensor, k: torch.Tensor, mask_a: torch.Tensor, mask_b: torch.Tensor,
+             temperature: float, bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(loss, lse (N, S²)) of q, k (N, S², C) and masks (N, S²)."""
+    raise ValueError(f"dense_pair_loss runs on cuda or cpu, not {q.device.type}")
 
-    @staticmethod
-    def backward(ctx, grad):
-        c, q_dtype, k_dtype = ctx.shape_dtypes
-        need_dq, need_dk = ctx.needs_input_grad[:2]
-        dq, dk = bwd_kernel(*ctx.saved_tensors, grad.detach().float().contiguous(),
-                            ctx.temperature, need_dq=need_dq, need_dk=need_dk)
-        if dq is not None:
-            dq = dq[..., :c].to(q_dtype)
-        if dk is not None:
-            dk = dk[..., :c].to(k_dtype)
-        return dq, dk, None, None, None, None
+
+@_loss_op.register_kernel("cuda")
+def _(q, k, mask_a, mask_b, temperature, bf16):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return fwd_kernel(*prepare_operands(q, k, mask_a, mask_b, dtype), temperature)
+
+
+@_loss_op.register_kernel("cpu")
+def _(q, k, mask_a, mask_b, temperature, bf16):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return dense_pair_loss_factorized(q.to(dtype).float(), k.to(dtype).float(),
+                                      mask_a.float(), mask_b.float(), temperature)
+
+
+@_loss_op.register_fake
+def _(q, k, mask_a, mask_b, temperature, bf16):
+    return (q.new_empty((), dtype=torch.float32),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+@torch.library.custom_op("cp2_torch::dense_pair_loss_backward", mutates_args=())
+def _backward_op(q: torch.Tensor, k: torch.Tensor, mask_a: torch.Tensor,
+                 mask_b: torch.Tensor, lse: torch.Tensor, grad: torch.Tensor,
+                 temperature: float, bf16: bool, need_dq: bool,
+                 need_dk: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dq, dk) in the dtypes of q and k; an empty tensor where not needed."""
+    raise ValueError(f"dense_pair_loss runs on cuda or cpu, not {q.device.type}")
+
+
+@_backward_op.register_kernel("cuda")
+def _(q, k, mask_a, mask_b, lse, grad, temperature, bf16, need_dq, need_dk):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    dq, dk = bwd_kernel(*prepare_operands(q, k, mask_a, mask_b, dtype), lse,
+                        grad.detach().float().reshape(()).contiguous(), temperature,
+                        need_dq=need_dq, need_dk=need_dk)
+    c = q.shape[-1]
+    return (q.new_empty(0) if dq is None else dq[..., :c].to(q.dtype),
+            k.new_empty(0) if dk is None else dk[..., :c].to(k.dtype))
+
+
+@_backward_op.register_kernel("cpu")
+def _(q, k, mask_a, mask_b, lse, grad, temperature, bf16, need_dq, need_dk):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    dq, dk = dense_pair_loss_backward(q.to(dtype).float(), k.to(dtype).float(),
+                                      mask_a.float(), mask_b.float(), lse, temperature,
+                                      grad=grad.reshape(()))
+    return (dq.to(q.dtype) if need_dq else q.new_empty(0),
+            dk.to(k.dtype) if need_dk else k.new_empty(0))
+
+
+@_backward_op.register_fake
+def _(q, k, mask_a, mask_b, lse, grad, temperature, bf16, need_dq, need_dk):
+    return (torch.empty_like(q) if need_dq else q.new_empty(0),
+            torch.empty_like(k) if need_dk else k.new_empty(0))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, mask_a, mask_b, temperature, bf16 = inputs
+    ctx.save_for_backward(q, k, mask_a, mask_b, output[1])
+    ctx.temperature, ctx.bf16 = temperature, bf16
+    ctx.mark_non_differentiable(output[1])
+
+
+def _backward(ctx, grad, _grad_lse):
+    need_dq, need_dk = ctx.needs_input_grad[:2]
+    dq, dk = _backward_op(*ctx.saved_tensors, grad, ctx.temperature, ctx.bf16,
+                          need_dq, need_dk)
+    return (dq if need_dq else None, dk if need_dk else None, None, None, None, None)
+
+
+_loss_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.cp2_torch.dense_pair_loss)
+def _loss_flops(q_shape, *args, out_shape=None, **kwargs) -> int:
+    """The similarities, 2·N·S²·S²·C; the elementwise work is not counted."""
+    n, s2, c = q_shape
+    return 2 * n * s2 * s2 * c
+
+
+@register_flop_formula(torch.ops.cp2_torch.dense_pair_loss_backward)
+def _backward_flops(q_shape, k_shape, mask_a, mask_b, lse, grad, temperature, bf16,
+                    need_dq, need_dk, out_shape=None, **kwargs) -> int:
+    """One product of the forward's size for each gradient asked for; the
+    kernel's recomputation of the similarities is not model work and is not
+    counted (XLA's count of the JAX step, an einsum, has none)."""
+    n, s2, c = q_shape
+    return 2 * n * s2 * s2 * c * (int(need_dq) + int(need_dk))
 
 
 def dense_pair_loss(q: torch.Tensor, k: torch.Tensor, mask_a: torch.Tensor,
@@ -296,8 +383,8 @@ def dense_pair_loss(q: torch.Tensor, k: torch.Tensor, mask_a: torch.Tensor,
     Equal to ``dense_pair_loss_reference`` (the CP2 loss with unit
     correspondence weights and no negative reshaping).  The similarities
     are formed from ``compute_dtype`` operands with float32 accumulation.
-    Gradients flow to ``q`` and ``k``.  CUDA tensors launch the kernel;
-    CPU tensors take the plain formula.
+    Gradients flow to ``q`` and ``k``.  CUDA tensors launch the kernels;
+    CPU tensors take their plain versions; meta tensors give shapes alone.
     """
     if q.shape != k.shape:
         # CP2 always pairs same-grid views; reject silently-wrong ragged inputs
@@ -307,12 +394,7 @@ def dense_pair_loss(q: torch.Tensor, k: torch.Tensor, mask_a: torch.Tensor,
             f"expected q, k (N, S2, C) and masks (N, S2); got {tuple(q.shape)}, "
             f"{tuple(mask_a.shape)}, {tuple(mask_b.shape)}"
         )
-    if q.device.type == "cuda":
-        return _DensePairLossCUDA.apply(q, k, mask_a, mask_b, temperature,
-                                        compute_dtype)
-    if q.device.type == "cpu":
-        return dense_pair_loss_reference(
-            q.to(compute_dtype).float(), k.to(compute_dtype).float(),
-            mask_a.float(), mask_b.float(), temperature,
-        )
-    raise ValueError(f"dense_pair_loss runs on cuda or cpu, not {q.device.type}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    return _loss_op(q, k, mask_a, mask_b, float(temperature),
+                    compute_dtype == torch.bfloat16)[0]

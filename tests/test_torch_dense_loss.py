@@ -84,7 +84,8 @@ def test_analytic_backward_matches_jax_grad(shape, temp):
 
 @pytest.mark.parametrize("temp", TEMPS)
 def test_entry_on_cpu_takes_plain_version(temp):
-    """CPU tensors take the plain formula, gradients through autograd."""
+    """CPU tensors take the plain versions: the factorized forward and the
+    analytic backward from its ``lse``."""
     q, k, a, b = _inputs(2, 196, 32, seed=11)
     ref, (dq_ref, dk_ref) = _jax_value_and_grads(q, k, a, b, temp)
     tq, tk = (torch.from_numpy(x).requires_grad_() for x in (q, k))
