@@ -202,6 +202,19 @@ Phases, in order; any failure exits non-zero:
             elsewhere, against the steps each run counted where they ran
             (its ``LAUNCHES`` line); output in
             ``chiprun_out/chip_smoke_tools_*.log``.
+21. gate    the quality gate (``cp2_tpu_torch.tools.quality_gate.main``,
+            in process) on a small corpus under ``work_dirs/chip_smoke_gate/``
+            (deleted after): 64 train, 8 val and 8 test images at 160x160,
+            2 pretrain epochs of 2 CP2 steps at full width (batch 32), then
+            the CP2-initialised and the scratch finetune (batch 16, 1 epoch
+            of 4 steps): the JSON's keys, and each leg's, equal those of the
+            JAX gate's ``reports/quality/quality_gate.json``, both test Dice
+            finite in [0, 1]; the dense-loss kernels once each way per
+            pretrain step and never in the finetunes (the gate's
+            ``card/quality_gate.json``); and ``test_loop.multi_device_test``
+            in a world of one (NCCL) on the CP2 finetune's best checkpoint
+            over the 8 test images (one of them a flip-view pair, one cut to
+            128x160) equal to ``dataset_test``.
 
 ``python3 chip_smoke.py --preflight`` runs phases 1-4 alone, as the
 experiment drivers' ``preflight`` does; it exits non-zero on any failure.
@@ -223,6 +236,7 @@ every path), the card's name and power limit, and
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import math
@@ -3004,6 +3018,28 @@ def dist_rank(workdir) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A NCCL process group of one rank, joined from torchrun's environment
+    set here; the group is left and the environment restored after."""
+    from cp2_tpu_torch import parallel
+
+    saved = {k: os.environ.get(k) for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                                            "MASTER_PORT")}
+    os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(free_port()))
+    try:
+        parallel.initialize(backend="nccl")
+        yield
+    finally:
+        parallel.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def check_dist_nccl_world1(dl):
     """Phase 18(a): two full-width CP2 steps through the distributed code
     path with ``initialize(backend="nccl")`` and a world of one, against
@@ -3011,7 +3047,6 @@ def check_dist_nccl_world1(dl):
     same batch and weights, with cuDNN's deterministic algorithms; the
     difference of two runs without a group beside it (the run in a group
     may differ by no more: bit-equal where the two runs are)."""
-    from cp2_tpu_torch import parallel
     from cp2_tpu_torch.config import Config
     from cp2_tpu_torch.ssl import SSLEncoder, SSLHyperParams, create_pretrain_state
     from cp2_tpu_torch.ssl import output_stride_of
@@ -3044,26 +3079,16 @@ def check_dist_nccl_world1(dl):
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     plain = two_steps()
     again = two_steps()
-    saved = {k: os.environ.get(k) for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
-                                            "MASTER_PORT")}
-    os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
-                      MASTER_PORT=str(free_port()))
     try:
-        parallel.initialize(backend="nccl")
-        import torch.distributed as dist
+        with nccl_world_of_one():
+            import torch.distributed as dist
 
-        backend, world = dist.get_backend(), dist.get_world_size()
-        dl.reset_launch_counts()
-        dist_run = two_steps()
-        launches = dict(dl.LAUNCHES)
+            backend, world = dist.get_backend(), dist.get_world_size()
+            dl.reset_launch_counts()
+            dist_run = two_steps()
+            launches = dict(dl.LAUNCHES)
     finally:
-        parallel.shutdown()
         torch.backends.cudnn.deterministic = False
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
     def diff(a, b):
         return (max(abs(x - y) for x, y in zip(a[0], b[0])),
@@ -3894,6 +3919,104 @@ COMPARE, COMPARE_ONE = "--compare", "--compare-one"
 PREFLIGHT = "--preflight"
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the quality gate, short, on the card
+# ---------------------------------------------------------------------------
+
+GATE_WORK = os.path.join("work_dirs", "chip_smoke_gate")
+GATE_SPLITS = {"n_train": 64, "n_val": 8, "n_test": 8}
+GATE_PRETRAIN_EPOCHS = 2
+GATE_JAX_ROW = os.path.join(HERE, "reports", "quality", "quality_gate.json")
+GATE_LEGS = ("finetune_cp2", "finetune_scratch")
+
+
+def gate_test_dataset(corpus):
+    """The gate corpus's test images as a test-loop dataset: the second a
+    flip-view pair, the third cut to 128x160 (maps of two shapes)."""
+    from PIL import Image
+
+    test_dir = os.path.join(corpus, "images")
+    names = sorted(n for n in os.listdir(test_dir) if n.startswith("test_"))
+    images = [np.asarray(Image.open(os.path.join(test_dir, n)).convert("RGB"),
+                         np.float32) / 255.0 for n in names]
+    images[2] = images[2][:128].copy()
+    data = [{"img": img, "img_metas": {"flip": False}} for img in images]
+    data[1] = [data[1], {"img": images[1][:, ::-1].copy(), "img_metas": {"flip": True}}]
+    return data
+
+
+def check_quality_gate(dl):
+    """Phase 21; returns the launches by leg and the numbers."""
+    from cp2_tpu_torch.checkpoint import latest_checkpoint
+    from cp2_tpu_torch.tools import quality_gate
+    from cp2_tpu_torch.train import inference, test_loop
+    import cp2_tpu_torch
+
+    t0 = time.perf_counter()
+    shutil.rmtree(GATE_WORK, ignore_errors=True)
+    corpus, logs, out = (os.path.join(GATE_WORK, d) for d in ("corpus", "logs", "out"))
+    quality_gate.main([
+        "--root", corpus, "--log_dir", logs, "--out", out,
+        "--pretrain_epochs", str(GATE_PRETRAIN_EPOCHS), "--finetune_epochs", "1",
+        *[x for k, v in GATE_SPLITS.items() for x in (f"--{k}", str(v))]])
+    gate_s = time.perf_counter() - t0
+    with open(os.path.join(out, "quality_gate.json")) as f:
+        written = json.load(f)
+    with open(os.path.join(out, "card", "quality_gate.json")) as f:
+        card = json.load(f)
+    with open(GATE_JAX_ROW) as f:
+        jax_row = json.load(f)
+    problems = []
+    if set(written) != set(jax_row):
+        problems.append(f"keys {sorted(written)} against the JAX gate's {sorted(jax_row)}")
+    for leg in GATE_LEGS:
+        if set(written[leg]) != set(jax_row[leg]):
+            problems.append(f"{leg} keys {sorted(written[leg])} against {sorted(jax_row[leg])}")
+        dice = written[leg].get("test_Dice", float("nan"))
+        if not (math.isfinite(dice) and 0.0 <= dice <= 1.0):
+            problems.append(f"{leg} test_Dice {dice}")
+    steps = GATE_SPLITS["n_train"] // 32 * GATE_PRETRAIN_EPOCHS
+    legs = card["legs"]
+    launches = {f"phase21_gate_{leg}": legs[leg]["launches"] for leg in legs}
+    if legs["pretrain"]["steps"] != steps:
+        problems.append(f"pretrain ran {legs['pretrain']['steps']} steps, not {steps}")
+    for leg, want in (("pretrain", steps), *((leg, 0) for leg in GATE_LEGS)):
+        if legs[leg]["launches"] != {"dense_pair_loss_fwd": want, "dense_pair_loss_bwd": want}:
+            problems.append(f"{leg}: launches {legs[leg]['launches']}, want {want} each way")
+
+    # multi_device_test in a world of one: the shard-and-gather path
+    config = os.path.join(os.path.dirname(cp2_tpu_torch.__file__), "configs",
+                          "config_finetune.py")
+    best = latest_checkpoint(os.path.join(logs, "qg_ft_cp2_s0"))
+    model = inference.init_segmentor(config, best, num_classes=2, dtype=torch.bfloat16)
+    data = gate_test_dataset(corpus)
+    want = test_loop.dataset_test(model, data)
+    with nccl_world_of_one():
+        got = test_loop.multi_device_test(model, data)
+    same = len(got) == len(want) and all(
+        g.shape == w.shape and g.dtype == w.dtype and np.array_equal(g, w)
+        for g, w in zip(got, want))
+    if not same or len({w.shape for w in want}) != 2:
+        problems.append("multi_device_test in a world of one differs from dataset_test")
+    del model
+    torch.cuda.empty_cache()
+    shutil.rmtree(GATE_WORK, ignore_errors=True)
+    numbers = {"gate_seconds": gate_s, "phase_seconds": time.perf_counter() - t0,
+               "card": card, "dice": {leg: written[leg]["test_Dice"] for leg in GATE_LEGS},
+               "pretrain_loss_first": written["pretrain_loss_first"],
+               "pretrain_loss_last": written["pretrain_loss_last"],
+               "multi_device_test_equal": same}
+    log(f"  gate: {gate_s:.1f} s; Dice CP2 {numbers['dice']['finetune_cp2']:.4f}, scratch "
+        f"{numbers['dice']['finetune_scratch']:.4f}; " + "; ".join(
+            f"{leg} {v['steps']} steps {v['seconds']:.1f} s {v['images_per_s']:.1f} images/s "
+            f"peak {v['peak_mib']} MiB launches {v['launches']}" for leg, v in legs.items()))
+    log(f"  multi_device_test (NCCL, world 1) equal to dataset_test on {len(want)} samples: "
+        f"{same}; phase {numbers['phase_seconds']:.1f} s")
+    if problems:
+        raise SystemExit(f"phase 21: {'; '.join(problems)}")
+    return launches, numbers
+
+
 def compare_one() -> int:
     """In the tree that is the working directory (its ``cp2_tpu_torch``):
     phase 5's step, phases 16-17's runs and the bench's device-only rate;
@@ -4080,6 +4203,10 @@ def main() -> int:
     log("measuring tools (twins of bench.py, tools/bench_*.py, tools/profile_step.py, "
         "__graft_entry__.py):")
     tool_launches, tools = check_tools()
+
+    # phase 21: the quality gate, short
+    log("quality gate (cp2_tpu_torch.tools.quality_gate), short:")
+    gate_launches, gate = check_quality_gate(dl)
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
                    "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
@@ -4087,7 +4214,7 @@ def main() -> int:
                    "finetune_cli": ft_cli, "cutpaste": cutpaste, "mirror_step": mirror_step,
                    "mirror_cli": mirror_cli, "inference_serving": serve,
                    "iter_narrow": iter_narrow, "iter_cli": iter_cli, "dist": dist,
-                   "scripts": scripts, "tools": tools,
+                   "scripts": scripts, "tools": tools, "quality_gate": gate,
                    "kernel_times_by_shape": flagship["by_shape"]}, f,
                   indent=1)
     log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")
@@ -4096,8 +4223,9 @@ def main() -> int:
         """Launches of one kernel on every path the script drives: the
         pretrain step's paths, and the finetune, mirror, inference,
         serving and iteration-CLI paths, which run no dense-loss kernel;
-        and phase 18's runs, each rank's counted in that rank's process, and
-        phase 20's tools, each counted in its own process."""
+        and phase 18's runs, each rank's counted in that rank's process,
+        phase 20's tools, each counted in its own process, and phase 21's
+        gate legs, each counted by the gate around its CLI call."""
         paths = {"phase5_step": step_launches[name], "phase7_cli_CP2": launches[name]}
         paths.update({f"phase8_{case}": n[name] for case, n in variant_launches.items()})
         paths.update({f"phase9_cli_{run}": n[name] for run, n in cli9_launches.items()})
@@ -4111,6 +4239,7 @@ def main() -> int:
         paths.update({run: n[name] for run, n in dist_launches.items()})
         paths.update({run: n[name] for run, n in script_launches.items()})
         paths.update({run: n[name] for run, n in tool_launches.items()})
+        paths.update({run: n[name] for run, n in gate_launches.items()})
         return paths
 
     kernels = [

@@ -14,7 +14,10 @@ corpus (``cp2_tpu_torch/tools/synthetic_corpus.py``) and reports
 It runs on the card; ``--device cpu`` runs it on the CPU (a smoke run at a
 tiny size).  Paths default to directories of the repository
 (``work_dirs/`` for the corpus and the runs, ``reports/quality_torch/`` for
-the JSON).
+the JSON).  Beside each JSON, ``<out>/card/<same name>`` records what the
+run cost where it ran: the card's name and power limit, and for each CLI
+call its seconds, steps, images/s, peak device memory, the memory still
+held when it began, and the dense-loss kernels' launches.
 
 Example: ``python -m cp2_tpu_torch.tools.quality_gate --pretrain_epochs 60
 --finetune_epochs 40``
@@ -73,8 +76,14 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
+    import torch
+
+    from cp2_tpu_torch.checkpoint import latest_checkpoint
+    from cp2_tpu_torch.ops import dense_loss
+    from cp2_tpu_torch.parallel import resolve_device
     from cp2_tpu_torch.tools.synthetic_corpus import generate, generate_unlabeled
     from cp2_tpu_torch.train import finetune, pretrain
+    from cp2_tpu_torch.utils.benchmarking import card_line, peak_mib, reset_peak
 
     device = args.device or "cuda"
     img_dir = os.path.join(args.root, "images")
@@ -160,12 +169,34 @@ def main(argv=None):
         print("[quality_gate dryrun] pretrain argv + 2 finetune argvs OK")
         return {"dryrun": True, "pre_args": pre_args}
 
+    dev = resolve_device(device)
+    card = {"card": card_line(dev), "legs": {}}
+
+    def measured(leg, run, batch):
+        """``run()`` → (result, steps run); its cost goes into ``card``."""
+        reset_peak(dev)
+        held = torch.cuda.memory_allocated(dev) / 2**20 if dev.type == "cuda" else None
+        dense_loss.reset_launch_counts()
+        t = time.time()
+        out, steps = run()
+        sec = time.time() - t
+        card["legs"][leg] = {"seconds": sec, "steps": steps, "batch": batch,
+                             "images_per_s": steps * batch / sec, "peak_mib": peak_mib(dev),
+                             "held_mib_at_start": held, "launches": dict(dense_loss.LAUNCHES)}
+        return out
+
+    def run_pretrain():
+        resumed = latest_checkpoint(pre_dir)  # where --resume starts
+        begun = int(os.path.basename(resumed)) if resumed else 0
+        state = pretrain.main(pre_args, device=device)
+        return None, int(state.step) - begun  # the state is dropped here
+
     if args.reuse_pretrain and finished_ckpt():
         print(f"[quality_gate] reusing pretrain checkpoint under {pre_dir}")
         results["pretrain_seconds"] = None
     else:
         print(f"[quality_gate] pretraining CP2 for {args.pretrain_epochs} epochs ...")
-        pretrain.main(pre_args, device=device)
+        measured("pretrain", run_pretrain, args.pretrain_batch)
         results["pretrain_seconds"] = time.time() - t0
     pretrain_path = finished_ckpt()
     if pretrain_path is None:
@@ -183,11 +214,15 @@ def main(argv=None):
     results["pretrain_loss_last"] = losses[-1] if losses else None
 
     def run_finetune(tag, pretrain_type, pretrain_path=""):
-        t = time.time()
-        metrics = finetune.main(finetune.get_args(ft_argv(tag, pretrain_type, pretrain_path)),
-                                device=device)
+        ft_args = finetune.get_args(ft_argv(tag, pretrain_type, pretrain_path))
+
+        def run():
+            metrics = finetune.main(ft_args, device=device)
+            return metrics, last_train_step(os.path.join(ft_args.log_dir, ft_args.run_id))
+
+        metrics = measured(f"finetune_{tag}", run, args.finetune_batch)
         metrics = {k: float(v) for k, v in metrics.items()}
-        metrics["seconds"] = time.time() - t
+        metrics["seconds"] = card["legs"][f"finetune_{tag}"]["seconds"]
         return metrics
 
     # ---- 2. finetune from the CP2 checkpoint ----
@@ -221,8 +256,23 @@ def main(argv=None):
             args.out, f"quality_gate_{ver}{pool}r{args.train_ratio}_s{args.seed}.json")
     with open(out_path, "w") as fh:
         json.dump(results, fh, indent=1)
+    os.makedirs(os.path.join(args.out, "card"), exist_ok=True)
+    with open(os.path.join(args.out, "card", os.path.basename(out_path)), "w") as fh:
+        json.dump(card, fh, indent=1)
     print(json.dumps({k: v for k, v in results.items() if k != "config"}, indent=1))
     return results
+
+
+def last_train_step(run_dir):
+    """The step of the finetune's last epoch row in ``metrics.jsonl``: the
+    train steps it ran (a finetune always starts at step 0)."""
+    step = 0
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        for line in fh:
+            row = json.loads(line)
+            if "train_loss" in row:
+                step = int(row["_step"])
+    return step
 
 
 if __name__ == "__main__":

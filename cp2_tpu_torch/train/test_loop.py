@@ -11,6 +11,12 @@ The dataset is anything indexable with a length whose items are
 them (one per view): the item format of the mmseg ``CustomDataset`` and its
 test pipelines.  The model runs where its parameters are, in the mode it
 is in (eval mode, as ``init_segmentor`` returns it).
+
+Under a process group (``cp2_tpu_torch.parallel``, e.g. ``torchrun``),
+``multi_device_test`` shards the dataset by rank, as mmseg's
+``multi_gpu_test`` does, and gathers the class maps, so every rank returns
+what one process returns; JAX's single controller runs the loop once
+(``cp2_tpu/train/test_loop.py:76-79``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import List
 import numpy as np
 import torch
 
+from cp2_tpu_torch import parallel
+from cp2_tpu_torch.parallel.collectives import group_device
 from cp2_tpu_torch.train.inference import whole_inference
 
 
@@ -52,7 +60,48 @@ def single_device_test(model: torch.nn.Module, dataset, **kw) -> List[np.ndarray
     return dataset_test(model, dataset, **kw)
 
 
+class _RankShard:
+    """The images ``i`` of ``dataset`` with ``i % world == rank``, in order."""
+
+    def __init__(self, dataset, rank: int, world: int):
+        self.dataset, self.rank, self.world = dataset, rank, world
+
+    def __len__(self):
+        return len(range(self.rank, len(self.dataset), self.world))
+
+    def __getitem__(self, j):
+        return self.dataset[self.rank + j * self.world]
+
+
 def multi_device_test(model: torch.nn.Module, dataset, **kw) -> List[np.ndarray]:
-    """Alias kept for API parity with multi_gpu_test: one process runs the
-    same loop (more than one process is not ported yet)."""
-    return dataset_test(model, dataset, **kw)
+    """``dataset_test`` across the ranks of the process group: each rank
+    runs the images ``i % W == rank``, then every rank gets every class map
+    in dataset order, equal to what one process's ``dataset_test`` returns.
+    Without a process group it is the one-process loop.
+
+    Two ``all_reduce``s (the port's only collective, ``parallel/
+    collectives.py``): the maps' shapes, then one flat zero-filled buffer
+    in which each rank has written its own maps; adding zeros is exact.
+    """
+    if not parallel.is_active():
+        return dataset_test(model, dataset, **kw)
+    world, rank, n = parallel.world_size(), parallel.rank(), len(dataset)
+    mine = dataset_test(model, _RankShard(dataset, rank, world), **kw)
+    where = group_device()
+    shapes = torch.zeros((n, 2), dtype=torch.int64)
+    for j, pred in enumerate(mine):
+        shapes[rank + j * world] = torch.tensor(pred.shape)
+    shapes = shapes.to(where)
+    torch.distributed.all_reduce(shapes)
+    sizes = shapes.prod(1).tolist()
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    flat = torch.zeros(offsets[-1], dtype=torch.int32)
+    for j, pred in enumerate(mine):
+        i = rank + j * world
+        flat[offsets[i]:offsets[i + 1]] = torch.from_numpy(pred.reshape(-1).astype(np.int32))
+    flat = flat.to(where)
+    torch.distributed.all_reduce(flat)
+    flat = flat.cpu().numpy()
+    shapes = shapes.cpu().tolist()
+    return [flat[offsets[i]:offsets[i + 1]].astype(np.int64).reshape(shapes[i])
+            for i in range(n)]

@@ -127,6 +127,17 @@ def test_quality_gate_runs_on_the_cpu_and_writes_the_jax_keys(tmp_path, monkeypa
         assert all(np.isfinite(v) for v in written[leg].values())
     assert np.isfinite(written["pretrain_loss_last"])
     assert written["pretrain_ckpt"].startswith(str(tmp_path / "logs"))
+    with open(out / "card" / "quality_gate.json") as f:
+        card = json.load(f)
+    assert card["card"] == "cpu" and set(card["legs"]) == {
+        "pretrain", "finetune_cp2", "finetune_scratch"}
+    # 12 images in batches of 4; the finetunes' train split (FILENAME) in
+    # batches of 4, one epoch each; no kernel runs on the CPU
+    assert card["legs"]["pretrain"]["steps"] == 3
+    assert card["legs"]["finetune_cp2"]["steps"] == card["legs"]["finetune_scratch"]["steps"] > 0
+    for leg in card["legs"].values():
+        assert leg["launches"] == {"dense_pair_loss_fwd": 0, "dense_pair_loss_bwd": 0}
+        assert leg["images_per_s"] > 0 and leg["peak_mib"] is None
 
 
 def test_converter_graft_equals_the_bridge(tmp_path):
