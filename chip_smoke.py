@@ -194,7 +194,8 @@ Phases, in order; any failure exits non-zero:
             tasks, ``python -m cp2_tpu_torch.graft_entry`` (the dry run's
             two gloo ranks on the card) and ``graft_entry.entry()`` here;
             the five variants share one process, and so do profile_step's
-            two tasks (each tool's ``main`` in turn).  Each exits 0 with a
+            two tasks and the five one-run tools from bench_finetune to
+            bench_dilated_conv (each ``main`` in turn).  Each exits 0 with a
             JSON line, rates above 0, ``mfu`` in (0, 1], each counted step's
             FLOPs equal to the count of its configuration on the CPU (meta
             device), the dense-loss kernels once forward and once backward
@@ -204,14 +205,20 @@ Phases, in order; any failure exits non-zero:
             ``chiprun_out/chip_smoke_tools_*.log``.
 21. gate    the quality gate (``cp2_tpu_torch.tools.quality_gate.main``,
             in process) on a small corpus under ``work_dirs/chip_smoke_gate/``
-            (deleted after): 64 train, 8 val and 8 test images at 160x160,
-            2 pretrain epochs of 2 CP2 steps at full width (batch 32), then
-            the CP2-initialised and the scratch finetune (batch 16, 1 epoch
-            of 4 steps): the JSON's keys, and each leg's, equal those of the
-            JAX gate's ``reports/quality/quality_gate.json``, both test Dice
-            finite in [0, 1]; the dense-loss kernels once each way per
-            pretrain step and never in the finetunes (the gate's
-            ``card/quality_gate.json``); and ``test_loop.multi_device_test``
+            (deleted after): 64 train, 8 val and 8 test images at 160x160
+            and 32 unlabeled, 2 pretrain epochs of 3 CP2 steps at full width
+            (batch 32), then the CP2-initialised and the scratch finetune
+            (batch 16, 1 epoch of 4 steps): the JSON's keys, and each leg's,
+            equal those of the JAX gate's ``reports/quality/quality_gate.json``,
+            both test Dice finite in [0, 1]; the dense-loss kernels once each
+            way per pretrain step and never in the finetunes (the gate's
+            ``card/`` record); a second gate call in the pattern of the rows
+            that share one pretrain (``--pretrain_epochs 1 --seed 1
+            --pretrain_seed 0 --reuse_pretrain --scratch_from`` the first
+            JSON): no pretrain leg, the first's checkpoint, its scratch leg
+            imported and equal to the first's, the keys of
+            ``reports/quality/quality_gate_u1600_r1.0_s0.json``, no launch
+            in its finetune; and ``test_loop.multi_device_test``
             in a world of one (NCCL) on the CP2 finetune's best checkpoint
             over the 8 test images (one of them a flip-view pair, one cut to
             128x160) equal to ``dataset_test``.
@@ -3762,7 +3769,7 @@ TOOLS_WORK = os.path.join("work_dirs", "chip_smoke_tools")
 # each tool at its JAX defaults (widths and batches); only its steps are cut
 TOOL_STEPS = ["--steps", "10", "--warmup", "2"]
 VARIANTS = ("DENSECL", "MOCO", "BYOL", "PROPOSED", "PROPOSED_V2")
-TOOL_RUNS = [  # (names, module, one argument list per name, environment)
+TOOL_RUNS = [  # (names, a module or one a name, one argument list a name, environment)
     (["bench"], "cp2_tpu_torch.bench", [[]],
      {"BENCH_STEPS": "20", "BENCH_WARMUP": "3", "BENCH_E2E_STEPS": "10",
       "BENCH_E2E_REPEATS": "2"}),
@@ -3770,12 +3777,14 @@ TOOL_RUNS = [  # (names, module, one argument list per name, environment)
     ([f"bench_pretrain_variant_{v}" for v in VARIANTS],
      "cp2_tpu_torch.tools.bench_pretrain_variant",
      [["--variant", v, *TOOL_STEPS] for v in VARIANTS], {}),
-    (["bench_finetune"], "cp2_tpu_torch.tools.bench_finetune", [TOOL_STEPS], {}),
-    (["bench_infer"], "cp2_tpu_torch.tools.bench_infer", [["--steps", "10"]], {}),
-    (["bench_metrics"], "cp2_tpu_torch.tools.bench_metrics", [["--full-step", "--steps", "10"]],
+    # five tools of one run each in one process: its start-up (10-28 s) is
+    # paid once; each tool's main zeroes the launch counts it reports
+    (["bench_finetune", "bench_infer", "bench_metrics", "bench_dense_loss",
+      "bench_dilated_conv"],
+     [f"cp2_tpu_torch.tools.{t}" for t in ("bench_finetune", "bench_infer", "bench_metrics",
+                                           "bench_dense_loss", "bench_dilated_conv")],
+     [TOOL_STEPS, ["--steps", "10"], ["--full-step", "--steps", "10"], ["--steps", "10"], []],
      {}),
-    (["bench_dense_loss"], "cp2_tpu_torch.tools.bench_dense_loss", [["--steps", "10"]], {}),
-    (["bench_dilated_conv"], "cp2_tpu_torch.tools.bench_dilated_conv", [[]], {}),
     (["profile_step_pretrain", "profile_step_finetune"], "cp2_tpu_torch.tools.profile_step",
      [["--steps", "3", "--out", os.path.join(TOOLS_WORK, "profile_pretrain")],
       ["--task", "finetune", "--steps", "3", "--out",
@@ -3797,16 +3806,18 @@ def run_tool(names, module, argvs, env_extra, timeout=300, cwd=HERE):
     user runs it for one run, its ``main`` on each argument list in turn
     for several.  Its output goes to ``chiprun_out/``.  Returns ({name:
     (the run's JSON line, its ``LAUNCHES`` line)}, seconds); a failure
-    fails the phase."""
+    fails the phase.  ``module`` may be a list: one module a run."""
     from cp2_tpu_torch.utils.benchmarking import LAUNCH_TAG
 
+    modules = [module] * len(argvs) if isinstance(module, str) else module
     if len(argvs) == 1:
-        cmd = [sys.executable, "-m", module, *argvs[0]]
+        cmd = [sys.executable, "-m", modules[0], *argvs[0]]
     else:
         cmd = [sys.executable, "-c",
-               f"import gc, torch; from {module} import main\n"
-               f"for argv in {argvs!r}:\n"
-               "    main(argv); gc.collect(); torch.cuda.empty_cache()"]
+               "import gc, importlib, torch\n"
+               f"for module, argv in {list(zip(modules, argvs))!r}:\n"
+               "    importlib.import_module(module).main(argv); gc.collect(); "
+               "torch.cuda.empty_cache()"]
     t = time.perf_counter()
     proc = subprocess.run(cmd, cwd=cwd, env={**os.environ, **env_extra}, capture_output=True,
                           text=True, timeout=timeout)
@@ -3924,10 +3935,26 @@ PREFLIGHT = "--preflight"
 # ---------------------------------------------------------------------------
 
 GATE_WORK = os.path.join("work_dirs", "chip_smoke_gate")
-GATE_SPLITS = {"n_train": 64, "n_val": 8, "n_test": 8}
+GATE_SPLITS = {"n_train": 64, "n_val": 8, "n_test": 8, "n_unlabeled": 32}
 GATE_PRETRAIN_EPOCHS = 2
 GATE_JAX_ROW = os.path.join(HERE, "reports", "quality", "quality_gate.json")
+# the JAX row whose pattern the second gate call follows: a pretrain
+# reused at fewer epochs than it ran, the scratch leg imported
+GATE_JAX_REUSE_ROW = os.path.join(HERE, "reports", "quality", "quality_gate_u1600_r1.0_s0.json")
 GATE_LEGS = ("finetune_cp2", "finetune_scratch")
+
+
+def key_problems(written, ref, what):
+    """How ``written``'s key sets, top level and per leg, differ from
+    ``ref``'s."""
+    problems = []
+    if set(written) != set(ref):
+        problems.append(f"{what}: keys {sorted(written)} against {sorted(ref)}")
+    for leg in GATE_LEGS:
+        if set(written.get(leg, ())) != set(ref[leg]):
+            problems.append(f"{what}: {leg} keys {sorted(written.get(leg, ()))} against "
+                            f"{sorted(ref[leg])}")
+    return problems
 
 
 def gate_test_dataset(corpus):
@@ -3955,39 +3982,70 @@ def check_quality_gate(dl):
     t0 = time.perf_counter()
     shutil.rmtree(GATE_WORK, ignore_errors=True)
     corpus, logs, out = (os.path.join(GATE_WORK, d) for d in ("corpus", "logs", "out"))
-    quality_gate.main([
-        "--root", corpus, "--log_dir", logs, "--out", out,
-        "--pretrain_epochs", str(GATE_PRETRAIN_EPOCHS), "--finetune_epochs", "1",
-        *[x for k, v in GATE_SPLITS.items() for x in (f"--{k}", str(v))]])
+    common = ["--root", corpus, "--log_dir", logs, "--out", out, "--finetune_epochs", "1",
+              *[x for k, v in GATE_SPLITS.items() for x in (f"--{k}", str(v))]]
+    quality_gate.main([*common, "--pretrain_epochs", str(GATE_PRETRAIN_EPOCHS)])
     gate_s = time.perf_counter() - t0
-    with open(os.path.join(out, "quality_gate.json")) as f:
+    first_json = os.path.join(out, f"quality_gate_u{GATE_SPLITS['n_unlabeled']}_r1.0_s0.json")
+    # the pattern of the JAX rows that share one pretrain: a finetune seed
+    # on the pretrain seed's checkpoint, reused at fewer epochs than it ran,
+    # the scratch leg imported from the first row
+    t = time.perf_counter()
+    quality_gate.main([*common, "--pretrain_epochs", "1", "--seed", "1", "--pretrain_seed", "0",
+                       "--reuse_pretrain", "--scratch_from", first_json])
+    reuse_s = time.perf_counter() - t
+    second_name = f"quality_gate_u{GATE_SPLITS['n_unlabeled']}_r1.0_s1.json"
+    with open(first_json) as f:
         written = json.load(f)
-    with open(os.path.join(out, "card", "quality_gate.json")) as f:
+    with open(os.path.join(out, second_name)) as f:
+        reused = json.load(f)
+    with open(os.path.join(out, "card", os.path.basename(first_json))) as f:
         card = json.load(f)
+    with open(os.path.join(out, "card", second_name)) as f:
+        reuse_card = json.load(f)
     with open(GATE_JAX_ROW) as f:
         jax_row = json.load(f)
-    problems = []
-    if set(written) != set(jax_row):
-        problems.append(f"keys {sorted(written)} against the JAX gate's {sorted(jax_row)}")
-    for leg in GATE_LEGS:
-        if set(written[leg]) != set(jax_row[leg]):
-            problems.append(f"{leg} keys {sorted(written[leg])} against {sorted(jax_row[leg])}")
-        dice = written[leg].get("test_Dice", float("nan"))
-        if not (math.isfinite(dice) and 0.0 <= dice <= 1.0):
-            problems.append(f"{leg} test_Dice {dice}")
-    steps = GATE_SPLITS["n_train"] // 32 * GATE_PRETRAIN_EPOCHS
+    with open(GATE_JAX_REUSE_ROW) as f:
+        jax_reuse_row = json.load(f)
+    problems = key_problems(written, jax_row, "first call")
+    problems += key_problems(reused, jax_reuse_row, "second call")
+    for row in (written, reused):
+        for leg in GATE_LEGS:
+            dice = row[leg].get("test_Dice", float("nan"))
+            if not (math.isfinite(dice) and 0.0 <= dice <= 1.0):
+                problems.append(f"{leg} test_Dice {dice}")
+    images = GATE_SPLITS["n_train"] + GATE_SPLITS["n_unlabeled"]
+    steps = images // 32 * GATE_PRETRAIN_EPOCHS
     legs = card["legs"]
     launches = {f"phase21_gate_{leg}": legs[leg]["launches"] for leg in legs}
+    launches.update({f"phase21_gate_reuse_{leg}": v["launches"]
+                     for leg, v in reuse_card["legs"].items()})
     if legs["pretrain"]["steps"] != steps:
         problems.append(f"pretrain ran {legs['pretrain']['steps']} steps, not {steps}")
     for leg, want in (("pretrain", steps), *((leg, 0) for leg in GATE_LEGS)):
         if legs[leg]["launches"] != {"dense_pair_loss_fwd": want, "dense_pair_loss_bwd": want}:
             problems.append(f"{leg}: launches {legs[leg]['launches']}, want {want} each way")
+    if set(reuse_card["legs"]) != {"finetune_cp2"}:
+        problems.append(f"the second call ran the legs {sorted(reuse_card['legs'])}, want "
+                        f"finetune_cp2 alone (no pretrain, the scratch leg imported)")
+    if reuse_card["legs"].get("finetune_cp2", {}).get("launches") != {
+            "dense_pair_loss_fwd": 0, "dense_pair_loss_bwd": 0}:
+        problems.append(f"the second call's finetune launched {reuse_card['legs']}")
+    if reused["pretrain_ckpt"] != written["pretrain_ckpt"] or \
+            reused["pretrain_seconds"] is not None:
+        problems.append(f"the second call's pretrain {reused['pretrain_ckpt']} "
+                        f"({reused['pretrain_seconds']} s), not the first's "
+                        f"{written['pretrain_ckpt']} reused")
+    imported = dict(reused["finetune_scratch"])
+    if imported.pop("imported_from", None) != first_json or \
+            imported != written["finetune_scratch"]:
+        problems.append(f"the second call's scratch leg {reused['finetune_scratch']} is not "
+                        f"the first's imported")
 
     # multi_device_test in a world of one: the shard-and-gather path
     config = os.path.join(os.path.dirname(cp2_tpu_torch.__file__), "configs",
                           "config_finetune.py")
-    best = latest_checkpoint(os.path.join(logs, "qg_ft_cp2_s0"))
+    best = latest_checkpoint(os.path.join(logs, f"qg_ft_cp2_u{GATE_SPLITS['n_unlabeled']}_s0"))
     model = inference.init_segmentor(config, best, num_classes=2, dtype=torch.bfloat16)
     data = gate_test_dataset(corpus)
     want = test_loop.dataset_test(model, data)
@@ -4001,8 +4059,11 @@ def check_quality_gate(dl):
     del model
     torch.cuda.empty_cache()
     shutil.rmtree(GATE_WORK, ignore_errors=True)
-    numbers = {"gate_seconds": gate_s, "phase_seconds": time.perf_counter() - t0,
-               "card": card, "dice": {leg: written[leg]["test_Dice"] for leg in GATE_LEGS},
+    numbers = {"gate_seconds": gate_s, "reuse_seconds": reuse_s,
+               "phase_seconds": time.perf_counter() - t0, "card": card,
+               "reuse_card": reuse_card,
+               "dice": {leg: written[leg]["test_Dice"] for leg in GATE_LEGS},
+               "reuse_dice_cp2": reused["finetune_cp2"]["test_Dice"],
                "pretrain_loss_first": written["pretrain_loss_first"],
                "pretrain_loss_last": written["pretrain_loss_last"],
                "multi_device_test_equal": same}
@@ -4010,6 +4071,10 @@ def check_quality_gate(dl):
         f"{numbers['dice']['finetune_scratch']:.4f}; " + "; ".join(
             f"{leg} {v['steps']} steps {v['seconds']:.1f} s {v['images_per_s']:.1f} images/s "
             f"peak {v['peak_mib']} MiB launches {v['launches']}" for leg, v in legs.items()))
+    log(f"  gate, a second finetune seed on the first's pretrain (--reuse_pretrain at "
+        f"--pretrain_epochs 1, --scratch_from): {reuse_s:.1f} s; Dice CP2 "
+        f"{numbers['reuse_dice_cp2']:.4f}; legs run {sorted(reuse_card['legs'])}, launches "
+        f"{reuse_card['legs'].get('finetune_cp2', {}).get('launches')}")
     log(f"  multi_device_test (NCCL, world 1) equal to dataset_test on {len(want)} samples: "
         f"{same}; phase {numbers['phase_seconds']:.1f} s")
     if problems:

@@ -18,7 +18,16 @@ finetune → test Dice, beside the same finetune from scratch);
   top level and per leg, equal that row's; its Dice values are finite; and
   each leg is within its bound.  A leg that misses stays in the record as
   a strict xfail whose reason names its entry in ROADMAP.md §3, so a later
-  fix shows up as an unexpected pass.
+  fix shows up as an unexpected pass.  Its ``card/`` twin names an NVIDIA
+  card and its power limit, and counts one launch of each dense-loss
+  kernel a pretrain step and none in a finetune.
+* **Shared pretrains.**  The five v1 pool-1600 rows, in JAX as in the
+  port, finetune from one 96-epoch pretrain (5952 steps); a scratch leg
+  imported with ``--scratch_from`` equals the port row it names.
+* **Seed groups.**  ``reports/quality_torch/seed_spread/<group>/`` holds
+  five CP2 legs on one port pretrain, finetune seeds 0-4; their mean is
+  held to the JAX rows' of the same settings by a pooled two-sample t
+  rule, fixed before the runs (``test_seed_group_means_agree``).
 """
 
 import glob
@@ -47,6 +56,12 @@ MISSES = {
     ("quality_gate_v4_u1600_r0.1_s1.json", "cp2"):
         "ROADMAP.md §3, 'the v4 ratio-0.1 seed-1 row's CP2-init leg': Dice 0.4196 "
         "against JAX's 0.4594, 0.0399 apart, over the bound of 0.0343",
+    ("quality_gate_u1600_r0.1_s1.json", "cp2"):
+        "ROADMAP.md §3, 'the v1 pool-1600 ratio-0.1 seed-1 row': CP2-init Dice 0.7351 "
+        "against JAX's 0.6791, 0.0560 apart, over the bound of 0.0343",
+    ("quality_gate_u1600_r0.1_s1.json", "scratch"):
+        "ROADMAP.md §3, 'the v1 pool-1600 ratio-0.1 seed-1 row': scratch Dice 0.7215 "
+        "against JAX's 0.6569, 0.0646 apart, over the bound of 0.0533",
 }
 
 
@@ -127,3 +142,175 @@ def test_leg_is_within_its_bound_of_the_jax_row(path, leg):
     (ref,) = (_load(p) for p in _counterparts(row))
     key = LEGS[leg]
     assert abs(row[key]["test_Dice"] - ref[key]["test_Dice"]) <= BOUNDS[leg]
+
+
+@pytest.mark.parametrize("path", _rows())
+def test_row_card_names_the_card_and_counts_launches(path):
+    with open(os.path.join(os.path.dirname(path), "card", os.path.basename(path))) as f:
+        card = json.load(f)
+    assert card["card"].startswith("NVIDIA ") and card["card"].endswith(" W")
+    row = _load(path)
+    # a reused pretrain or an imported scratch leg ran no CLI call here
+    want = {"finetune_cp2"} | ({"pretrain"} if row["pretrain_seconds"] is not None else set())
+    if "imported_from" not in row["finetune_scratch"]:
+        want.add("finetune_scratch")
+    assert set(card["legs"]) == want
+    for leg, cost in card["legs"].items():
+        steps = cost["steps"] if leg == "pretrain" else 0
+        assert cost["launches"] == {"dense_pair_loss_fwd": steps, "dense_pair_loss_bwd": steps}
+    if "pretrain" in card["legs"]:
+        assert os.path.basename(row["pretrain_ckpt"]) == str(card["legs"]["pretrain"]["steps"])
+
+
+U1600_STEPS = "5952"  # 96 epochs of 62 batches of 32 (400 train + 1600 unlabeled images)
+
+
+@pytest.mark.parametrize("rows", [JAX_ROWS, PORT_ROWS], ids=["jax", "port"])
+def test_u1600_rows_share_one_96_epoch_pretrain(rows):
+    """Every v1 pool-1600 row finetunes from one checkpoint at step 5952,
+    the 60-epoch rows too: the gate reuses a checkpoint whose epoch is at
+    least the epochs asked for (``tools/quality_gate.py:156``)."""
+    u1600 = [_load(p) for p in rows if _training(_load(p))[:2] == (1, 1600)]
+    assert len(u1600) == 5
+    (first,) = (r for r in u1600 if r["config"]["train_ratio"] == 1.0)
+    assert first["config"]["pretrain_epochs"] == 96 and first["pretrain_seconds"] is not None
+    for row in u1600:
+        assert os.path.basename(row["pretrain_ckpt"]) == U1600_STEPS
+        assert row["pretrain_ckpt"] == first["pretrain_ckpt"]
+        for key in ("pretrain_loss_first", "pretrain_loss_last"):
+            assert row[key] == first[key]
+    assert sorted(r["config"]["pretrain_epochs"] for r in u1600) == [60, 60, 96, 96, 96]
+
+
+def _imported():
+    return [pytest.param(p, id=os.path.basename(p)) for p in PORT_ROWS
+            if "imported_from" in _load(p)["finetune_scratch"]]
+
+
+@pytest.mark.parametrize("path", _imported())
+def test_imported_scratch_leg_equals_its_source(path):
+    leg = dict(_load(path)["finetune_scratch"])
+    source = leg.pop("imported_from")
+    source = os.path.normpath(os.path.join(REPO, source))
+    assert os.path.dirname(source) == os.path.join(REPO, "reports", "quality_torch")
+    assert source in PORT_ROWS and source != path  # a port row, never a JAX row
+    assert leg == _load(source)["finetune_scratch"]
+
+
+SPREAD = os.path.join(REPO, "reports", "quality_torch", "seed_spread")
+SEED_GROUPS = ("v4_u1600_r0.1", "v1_r0.3")
+# Student's t, 97.5 % quantile, by degrees of freedom
+T_975 = {4: 2.776, 5: 2.571}
+# (group, leg): its ROADMAP.md §3 entry, for a group whose rule says fault
+GROUP_FAULTS = {
+    ("v1_r0.3", "cp2"):
+        "ROADMAP.md §3, 'the v1 ratio-0.3 row's CP2-init leg': five finetune seeds on one "
+        "port pretrain average 0.8291 (SD 0.0073) against JAX's 0.8044, 0.0247 apart, over "
+        "the rule's margin of 0.0221",
+}
+
+
+def _group_rows(group):
+    return sorted(glob.glob(os.path.join(SPREAD, group, "quality_gate*.json")))
+
+
+def _jax_at(training):
+    return [_load(p) for p in JAX_ROWS if _training(_load(p)) == training]
+
+
+def _u1600_r01(rows):
+    """The v1 pool-1600 ratio-0.1 rows on the 5952-step checkpoint: one
+    pretrain, training settings equal apart from ``pretrain_epochs``."""
+    out = [_load(p) for p in rows]
+    out = [r for r in out if _training(r)[:2] == (1, 1600) and r["config"]["train_ratio"] == 0.1
+           and os.path.basename(r["pretrain_ckpt"]) == U1600_STEPS]
+    epochs = TRAINING.index("pretrain_epochs")
+    assert len({_training(r)[:epochs] + _training(r)[epochs + 1:] for r in out}) == 1
+    return out
+
+
+# the five-seed groups' CP2 legs, and both legs of the v1 pool-1600 ratio-0.1
+# rows (seeds 0-2 on one pretrain, in JAX as in the port)
+GROUP_CASES = [(g, "cp2") for g in SEED_GROUPS] + [("u1600_r0.1", leg) for leg in LEGS]
+
+
+def _groups():
+    params = []
+    for group, leg in GROUP_CASES:
+        reason = GROUP_FAULTS.get((group, leg))
+        marks = [pytest.mark.xfail(strict=True, reason=reason)] if reason else []
+        params.append(pytest.param(group, leg, id=f"{group}-{leg}", marks=marks))
+    return params
+
+
+def group_values(group, leg):
+    """(the port's Dice values x, the JAX rows' y) of a seed group's leg."""
+    key = LEGS[leg]
+    if group in SEED_GROUPS:
+        rows = [_load(p) for p in _group_rows(group)]
+        ref = _jax_at(_training(rows[0]))
+    else:
+        rows, ref = _u1600_r01(PORT_ROWS), _u1600_r01(JAX_ROWS)
+    return [r[key]["test_Dice"] for r in rows], [r[key]["test_Dice"] for r in ref]
+
+
+@pytest.mark.parametrize("group,leg", _groups())
+def test_seed_group_means_agree(group, leg):
+    """The port's mean Dice agrees with the JAX rows' mean at the same
+    settings when |x̄ − ȳ| ≤ t · s · √(1/n + 1/m), with s² the pooled
+    variance Σ(x − x̄)² + Σ(y − ȳ)² over n + m − 2, and t Student's 97.5 %
+    quantile at n + m − 2 degrees of freedom; otherwise the difference is a
+    fault.  The rule was fixed before the runs; each group's finetune seeds
+    share one pretrain on either side."""
+    x, y = group_values(group, leg)
+    assert (len(x), len(y)) in ((5, 2), (5, 1), (3, 3))
+    difference, margin = _pooled_rule(x, y)
+    assert difference <= margin
+
+
+def _pooled_rule(x, y):
+    n, m = len(x), len(y)
+    mx, my = sum(x) / n, sum(y) / m
+    s = math.sqrt((sum((v - mx) ** 2 for v in x) + sum((v - my) ** 2 for v in y)) / (n + m - 2))
+    return abs(mx - my), T_975[n + m - 2] * s * math.sqrt(1 / n + 1 / m)
+
+
+@pytest.mark.parametrize("group,leg", GROUP_CASES, ids=[f"{g}-{leg}" for g, leg in GROUP_CASES])
+def test_seed_group_tool_gives_the_rules_numbers(group, leg):
+    """``cp2_tpu_torch/tools/seed_group.py``, which writes each group's
+    SUMMARY.md, computes the margin and verdict of the rule above."""
+    from cp2_tpu_torch.tools import seed_group
+
+    x, y = group_values(group, leg)
+    _, _, _, difference, margin, agree = seed_group.rule(x, y)
+    assert (difference, margin) == pytest.approx(_pooled_rule(x, y), abs=1e-12)
+    assert agree == (difference <= margin)
+
+
+def test_the_t_constants_are_students_quantiles():
+    stats = pytest.importorskip("scipy.stats")
+    for df, t in T_975.items():
+        assert stats.t.ppf(0.975, df) == pytest.approx(t, abs=5e-4)
+
+
+@pytest.mark.parametrize("group", SEED_GROUPS)
+def test_seed_group_is_five_finetune_seeds_on_one_pretrain(group):
+    paths = _group_rows(group)
+    rows = [_load(p) for p in paths]
+    assert len(rows) == 5
+    assert sorted(r["config"]["seed"] for r in rows) == [0, 1, 2, 3, 4]
+    assert len({r["pretrain_ckpt"] for r in rows}) == 1
+    assert len({_training(r) for r in rows}) == 1 and _jax_at(_training(rows[0]))
+    assert all(r["config"]["pretrain_seed"] == 0 for r in rows)
+    pretrains = 0
+    for path, row in zip(paths, rows):
+        assert math.isfinite(row["finetune_cp2"]["test_Dice"]) and "finetune_scratch" not in row
+        with open(os.path.join(os.path.dirname(path), "card", os.path.basename(path))) as f:
+            card = json.load(f)
+        assert card["card"].startswith("NVIDIA ") and card["card"].endswith(" W")
+        pretrains += "pretrain" in card["legs"]
+        for leg, cost in card["legs"].items():
+            steps = cost["steps"] if leg == "pretrain" else 0
+            assert cost["launches"] == {"dense_pair_loss_fwd": steps,
+                                        "dense_pair_loss_bwd": steps}
+    assert pretrains == 1  # the first seed's call trained it, the others reused it

@@ -266,3 +266,72 @@ def test_gate_sweep_runs_the_jax_rows_through_the_ports_quality_gate(stub_path, 
         out = quality_gate.main([*flags, "--dryrun"])
         assert out["dryrun"] and out["pre_args"].pretrain_type.name == "CP2"
     assert [r[r.index("--seed") + 1] for r in ours] == ["0", "1", "0", "1"]
+
+
+GATE_ROWS = os.path.join(REPO, "cp2_tpu_torch", "tools", "run_gate_rows.sh")
+
+
+def _gate_calls(stub_path, tmp_path, mode):
+    """``run_gate_rows.sh mode``'s gate calls, each parsed by the port's
+    gate and checked by its ``--dryrun``."""
+    from cp2_tpu_torch.tools import quality_gate
+
+    proc, calls = _stubbed(GATE_ROWS, dict(os.environ), stub_path, tmp_path, 1, mode)
+    assert proc.returncode == 0, proc.stderr
+    out = []
+    for call in calls:
+        assert os.path.realpath(call["cwd"]) == os.path.realpath(REPO)
+        assert call["argv"][:3] == ["python", "-m", "cp2_tpu_torch.tools.quality_gate"]
+        flags = call["argv"][3:]
+        assert quality_gate.main([*flags, "--dryrun"])["dryrun"]
+        out.append(quality_gate.get_args(flags))
+    return out
+
+
+def test_gate_rows_run_the_jax_u1600_rows_on_one_pretrain(stub_path, tmp_path):
+    """``run_gate_rows.sh u1600``: one gate call per JAX v1 pool-1600 row
+    with its training settings, seed, pretrain seed and reuse, the first
+    training the pretrain the others reuse; a scratch leg imported where
+    the JAX row imported it, from the port's row of the same name."""
+    calls = _gate_calls(stub_path, tmp_path, "u1600")
+    jax_rows = [json.load(open(p)) for p in sorted(glob.glob(os.path.join(
+        REPO, "reports", "quality", "quality_gate_u1600_*.json")))]
+    assert len(calls) == len(jax_rows) == 5
+    assert not calls[0].reuse_pretrain and all(c.reuse_pretrain for c in calls[1:])
+    assert len({(c.root, c.log_dir) for c in calls}) == 1
+    for row in jax_rows:
+        cfg = row["config"]
+        (call,) = [c for c in calls
+                   if (c.train_ratio, c.seed) == (cfg["train_ratio"], cfg["seed"])]
+        for key in ("n_unlabeled", "pretrain_epochs", "pretrain_batch", "finetune_epochs",
+                    "finetune_batch", "size", "img_size", "n_train", "n_val", "n_test",
+                    "reuse_pretrain", "skip_scratch"):
+            assert getattr(call, key) == cfg[key], key
+        assert call.pretrain_seed == cfg.get("pretrain_seed") and call.corpus_version == 1
+        if cfg["scratch_from"]:
+            assert call.scratch_from == os.path.join(
+                "reports", "quality_torch", os.path.basename(cfg["scratch_from"]))
+        else:
+            assert call.scratch_from == ""
+
+
+def test_gate_rows_run_five_finetune_seeds_per_seed_group(stub_path, tmp_path):
+    """``run_gate_rows.sh seed_spread``: five CP2-only finetune seeds on one
+    pretrain per group, each corpus version under a --root and --log_dir of
+    its own (the pretrain's run id does not name the corpus version)."""
+    calls = _gate_calls(stub_path, tmp_path, "seed_spread")
+    groups = {}
+    for call in calls:
+        groups.setdefault(call.out, []).append(call)
+    want = {"v4_u1600_r0.1": (4, 1600, 0.1), "v1_r0.3": (1, 0, 0.3)}
+    assert sorted(groups) == sorted(os.path.join("reports", "quality_torch", "seed_spread", g)
+                                    for g in want)
+    for out, group in groups.items():
+        assert [c.seed for c in group] == [0, 1, 2, 3, 4]
+        assert {(c.corpus_version, c.n_unlabeled, c.train_ratio) for c in group} == {
+            want[os.path.basename(out)]}
+        assert all(c.pretrain_seed == 0 and c.reuse_pretrain and c.skip_scratch
+                   and c.pretrain_epochs == 60 for c in group)
+        assert len({(c.root, c.log_dir) for c in group}) == 1
+    assert len({(g[0].root) for g in groups.values()}) == 2
+    assert len({(g[0].log_dir) for g in groups.values()}) == 2

@@ -85,8 +85,9 @@ def test_quality_gate_takes_the_jax_flags():
     assert dry["dryrun"] and dry["pre_args"].pretrain_type.name == "CP2"
 
 
-def test_quality_gate_runs_on_the_cpu_and_writes_the_jax_keys(tmp_path, monkeypatch):
-    from cp2_tpu.ops import metrics as jax_metrics
+def _tiny_gate(tmp_path, monkeypatch):
+    """``quality_gate.main`` on the CPU with the tiny configs and a 12/4/4
+    corpus at 32x32, one epoch each; returns (run(extra argv), out dir)."""
     from cp2_tpu_torch.tools import quality_gate
     from cp2_tpu_torch.train import finetune, pretrain
 
@@ -103,17 +104,30 @@ def test_quality_gate_runs_on_the_cpu_and_writes_the_jax_keys(tmp_path, monkeypa
     # matches "train" anywhere in a pretrain file's path
     root = tmp_path / "corpus"
     out = tmp_path / "report"
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        with torch.backends.mkldnn.flags(enabled=False):  # see test_torch_finetune_cli.py
-            results = quality_gate.main([
-                "--root", str(root), "--size", "32", "--n_train", "12", "--n_val", "4",
-                "--n_test", "4", "--img_size", "32", "--pretrain_epochs", "1",
-                "--pretrain_batch", "4", "--finetune_epochs", "1", "--finetune_batch", "4",
-                "--device", "cpu", "--log_dir", str(tmp_path / "logs"), "--out", str(out)])
-    finally:
-        torch.set_num_threads(threads)
+
+    def run(*extra):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)
+        try:
+            with torch.backends.mkldnn.flags(enabled=False):  # see test_torch_finetune_cli.py
+                return quality_gate.main([
+                    "--root", str(root), "--size", "32", "--n_train", "12", "--n_val", "4",
+                    "--n_test", "4", "--img_size", "32", "--pretrain_epochs", "1",
+                    "--pretrain_batch", "4", "--finetune_epochs", "1", "--finetune_batch", "4",
+                    "--device", "cpu", "--log_dir", str(tmp_path / "logs"), "--out", str(out),
+                    *extra])
+        finally:
+            torch.set_num_threads(threads)
+
+    return run, out
+
+
+def test_quality_gate_runs_on_the_cpu_and_writes_the_jax_keys(tmp_path, monkeypatch):
+    from cp2_tpu.ops import metrics as jax_metrics
+    from cp2_tpu_torch.tools import quality_gate
+
+    run, out = _tiny_gate(tmp_path, monkeypatch)
+    results = run()
     with open(out / "quality_gate.json") as f:
         written = json.load(f)
     assert set(written) == set(results) == {
@@ -138,6 +152,36 @@ def test_quality_gate_runs_on_the_cpu_and_writes_the_jax_keys(tmp_path, monkeypa
     for leg in card["legs"].values():
         assert leg["launches"] == {"dense_pair_loss_fwd": 0, "dense_pair_loss_bwd": 0}
         assert leg["images_per_s"] > 0 and leg["peak_mib"] is None
+
+
+def test_quality_gate_reuses_a_longer_pretrain_and_imports_the_scratch_leg(tmp_path,
+                                                                          monkeypatch):
+    """The pattern of the JAX rows that share one pretrain
+    (``reports/quality/quality_gate_u1600_r*.json``): a finetune seed on the
+    pretrain seed's checkpoint, reused at fewer epochs than it ran, with the
+    scratch leg imported from an earlier row.  The second call runs the
+    CP2-initialised finetune alone, and its keys equal the JAX row's."""
+    run, out = _tiny_gate(tmp_path, monkeypatch)
+    first = run("--n_unlabeled", "4", "--pretrain_epochs", "2")
+    first_json = str(out / "quality_gate_u4_r1.0_s0.json")
+    second = run("--n_unlabeled", "4", "--seed", "1", "--pretrain_seed", "0",
+                 "--reuse_pretrain", "--scratch_from", first_json)
+    with open(out / "quality_gate_u4_r1.0_s1.json") as f:
+        written = json.load(f)
+    with open(os.path.join(REPO, "reports", "quality", "quality_gate_u1600_r1.0_s0.json")) as f:
+        jax_row = json.load(f)
+    assert set(written) == set(second) == set(jax_row)
+    for leg in ("finetune_cp2", "finetune_scratch"):
+        assert set(written[leg]) == set(jax_row[leg])
+    assert written["pretrain_seconds"] is None
+    assert written["pretrain_ckpt"] == first["pretrain_ckpt"]
+    assert os.path.basename(written["pretrain_ckpt"]) == "8"  # 16 images / 4, 2 epochs
+    imported = dict(written["finetune_scratch"])
+    assert imported.pop("imported_from") == first_json
+    assert imported == first["finetune_scratch"]
+    with open(out / "card" / "quality_gate_u4_r1.0_s1.json") as f:
+        card = json.load(f)
+    assert set(card["legs"]) == {"finetune_cp2"}
 
 
 def test_converter_graft_equals_the_bridge(tmp_path):
