@@ -222,6 +222,21 @@ Phases, in order; any failure exits non-zero:
             in a world of one (NCCL) on the CP2 finetune's best checkpoint
             over the 8 test images (one of them a flip-view pair, one cut to
             128x160) equal to ``dataset_test``.
+22. corpus  the quality gate's v1 pool-400 corpus (seed 0, 160x160, 400
+            train, 60 val, 80 test images and their masks) generated here by
+            ``cp2_tpu_torch/tools/synthetic_corpus.py`` under
+            ``work_dirs/chip_smoke_corpus/`` (deleted after) and held to the
+            digests committed from the JAX tool's corpus
+            (``reports/quality_torch/corpus_v1_s0_160.json``): the number of
+            files whose decoded pixels differ, whose bytes differ, and the
+            largest pixel difference over the files kept whole beside the
+            digests; any missing file or pixel difference fails.  And the
+            rounding of a bias in bfloat16 on the card: the finetune's
+            ``conv_seg`` (512 → 2 channels, batch 16, 22x22) through
+            ``models/layers.py::conv2d`` (the bias added after the rounded
+            convolution, as flax adds it) must equal cuDNN's
+            ``F.conv2d`` with the bias bit for bit; a linear layer's fused
+            bias (cuBLASLt) is counted beside it.
 
 ``python3 chip_smoke.py --preflight`` runs phases 1-4 alone, as the
 experiment drivers' ``preflight`` does; it exits non-zero on any failure.
@@ -4082,6 +4097,66 @@ def check_quality_gate(dl):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the gate's corpus on the card, and bfloat16 bias rounding
+# ---------------------------------------------------------------------------
+
+CORPUS_WORK = os.path.join("work_dirs", "chip_smoke_corpus")
+CORPUS_DIGESTS = os.path.join(HERE, "reports", "quality_torch", "corpus_v1_s0_160.json")
+
+
+def check_corpus_and_rounding():
+    """Phase 22; returns its numbers."""
+    import torch.nn.functional as F
+
+    from cp2_tpu_torch.models.layers import conv2d, linear
+    from cp2_tpu_torch.tools import synthetic_corpus
+
+    t0 = time.perf_counter()
+    config, files, pixels = synthetic_corpus.load_digests(CORPUS_DIGESTS)
+    shutil.rmtree(CORPUS_WORK, ignore_errors=True)
+    synthetic_corpus.generate(CORPUS_WORK, config["size"],
+                              {k: config[f"n_{k}"] for k in ("train", "val", "test")},
+                              config["seed"], version=config["version"])
+    report = synthetic_corpus.compare_digests(CORPUS_WORK, files, pixels)
+    shutil.rmtree(CORPUS_WORK, ignore_errors=True)
+    corpus = {"files": report["files"], "missing": len(report["missing"]),
+              "pixels_differ": len(report["pixels_differ"]),
+              "bytes_differ": len(report["bytes_differ"]),
+              "largest_pixel_difference": report["largest_pixel_difference"],
+              "seconds": time.perf_counter() - t0}
+    log(f"  corpus v1 seed 0 at 160x160 ({report['files']} files against the digests of the "
+        f"JAX tool's corpus): {corpus['missing']} missing, {corpus['pixels_differ']} differ in "
+        f"pixels, {corpus['bytes_differ']} in bytes; largest pixel difference "
+        f"{corpus['largest_pixel_difference']} over {len(pixels)} files kept whole; "
+        f"{corpus['seconds']:.1f} s")
+    if corpus["missing"] or corpus["pixels_differ"]:
+        raise SystemExit("phase 22: the card's corpus differs from the committed digests: "
+                         f"{(report['missing'] + report['pixels_differ'])[:5]}")
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    conv = torch.nn.Conv2d(512, 2, 1).cuda()
+    x = torch.randn(16, 512, 22, 22, device="cuda", generator=g).bfloat16()
+    ours = conv2d(conv, x, torch.bfloat16)
+    fused = F.conv2d(x, conv.weight.bfloat16(), conv.bias.bfloat16())
+    fc = torch.nn.Linear(512, 128).cuda()
+    rows = torch.randn(4096, 512, device="cuda", generator=g).bfloat16()
+    split = linear(fc, rows, torch.bfloat16)
+    lt_fused = F.linear(rows, fc.weight.bfloat16(), fc.bias.bfloat16())
+    rounding = {"conv_seg_equal_to_cudnn": bool(torch.equal(ours, fused)),
+                "conv_seg_share_differing": float((ours != fused).float().mean()),
+                "linear_share_differing_from_fused": float((split != lt_fused).float().mean())}
+    log(f"  bfloat16 bias: conv_seg through layers.conv2d equals cuDNN's F.conv2d with its "
+        f"bias bit for bit: {rounding['conv_seg_equal_to_cudnn']} (share differing "
+        f"{rounding['conv_seg_share_differing']:.2e}); a linear layer's bias added after the "
+        f"rounding differs from the fused bias in {rounding['linear_share_differing_from_fused']:.2e}"
+        " of its outputs")
+    if not rounding["conv_seg_equal_to_cudnn"]:
+        raise SystemExit("phase 22: conv_seg in bfloat16 rounds otherwise than cuDNN's biased "
+                         "convolution on the card")
+    return {"corpus": corpus, "bf16_bias": rounding}
+
+
 def compare_one() -> int:
     """In the tree that is the working directory (its ``cp2_tpu_torch``):
     phase 5's step, phases 16-17's runs and the bench's device-only rate;
@@ -4272,6 +4347,10 @@ def main() -> int:
     # phase 21: the quality gate, short
     log("quality gate (cp2_tpu_torch.tools.quality_gate), short:")
     gate_launches, gate = check_quality_gate(dl)
+
+    # phase 22: the gate's corpus on the card, and bfloat16 bias rounding
+    log("the gate's corpus against its committed digests, and bfloat16 bias rounding:")
+    corpus = check_corpus_and_rounding()
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
                    "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
@@ -4280,6 +4359,7 @@ def main() -> int:
                    "mirror_cli": mirror_cli, "inference_serving": serve,
                    "iter_narrow": iter_narrow, "iter_cli": iter_cli, "dist": dist,
                    "scripts": scripts, "tools": tools, "quality_gate": gate,
+                   "corpus_and_rounding": corpus,
                    "kernel_times_by_shape": flagship["by_shape"]}, f,
                   indent=1)
     log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")

@@ -174,11 +174,23 @@ def make_norm(norm_cfg: Optional[dict], num_features: int, *,
     raise ValueError(f"unsupported norm type {kind!r}")
 
 
+def _rounds_before_bias(dtype: torch.dtype) -> bool:
+    """flax's ``nn.Conv`` and ``nn.Dense`` round the product to ``dtype``
+    and then add the bias in ``dtype``: two roundings below float32.  A
+    fused bias (torch's CPU convolution, cuBLASLt's epilogue) rounds once,
+    so below float32 the bias is added as a step of its own; at float32
+    and above the one rounding is the fused path's, kept as it was."""
+    return torch.finfo(dtype).bits < 32
+
+
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Run ``conv`` in ``dtype`` with its float32 weights cast per call."""
+    """Run ``conv`` in ``dtype`` with its float32 weights cast per call; the
+    bias is added where flax adds it (``_rounds_before_bias``)."""
     bias = None if conv.bias is None else conv.bias.to(dtype)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
-                    conv.padding, conv.dilation)
+    split = bias is not None and _rounds_before_bias(dtype)
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None if split else bias, conv.stride,
+                 conv.padding, conv.dilation)
+    return y + bias.view(1, -1, *([1] * (y.dim() - 2))) if split else y
 
 
 class ConvModule(nn.Module):
@@ -213,9 +225,12 @@ class ConvModule(nn.Module):
 
 
 def linear(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Run ``fc`` in ``dtype`` with its float32 weights cast per call."""
+    """Run ``fc`` in ``dtype`` with its float32 weights cast per call; the
+    bias is added where flax adds it (``_rounds_before_bias``)."""
     bias = None if fc.bias is None else fc.bias.to(dtype)
-    return F.linear(x.to(dtype), fc.weight.to(dtype), bias)
+    split = bias is not None and _rounds_before_bias(dtype)
+    y = F.linear(x.to(dtype), fc.weight.to(dtype), None if split else bias)
+    return y + bias if split else y
 
 
 class MLP(nn.Module):

@@ -58,6 +58,12 @@ def get_args(argv=None):
                    help="'cpu' runs on the CPU (smoke); default: the card")
     p.add_argument("--log_dir", default=os.path.join(REPO, "work_dirs", "quality_gate"))
     p.add_argument("--skip_scratch", action="store_true")
+    p.add_argument("--scratch_only", action="store_true",
+                   help="run the scratch leg alone: no pretrain and no CP2 leg (the "
+                        "scratch control's spread over finetune seeds)")
+    p.add_argument("--finetune_float32", action="store_true",
+                   help="finetune in float32 (--no-bf16); the gate's rows finetune in "
+                        "bfloat16, the CLI's default")
     p.add_argument("--scratch_from", default="",
                    help="a prior quality_gate JSON whose finetune_scratch is reused (the "
                         "scratch control does not depend on the pretraining)")
@@ -158,6 +164,8 @@ def main(argv=None):
               "--batch_size", str(args.finetune_batch), "--epochs", str(args.finetune_epochs),
               "--pretrain_type", pretrain_type, "--seed", str(args.seed),
               "--visualize_freq", "0"]
+        if args.finetune_float32:
+            ft.append("--no-bf16")
         if pretrain_path:
             ft += ["--pretrain_path", pretrain_path]
         return ft
@@ -185,12 +193,30 @@ def main(argv=None):
                              "held_mib_at_start": held, "launches": dict(dense_loss.LAUNCHES)}
         return out
 
+    def run_finetune(tag, pretrain_type, pretrain_path=""):
+        ft_args = finetune.get_args(ft_argv(tag, pretrain_type, pretrain_path))
+
+        def run():
+            metrics = finetune.main(ft_args, device=device)
+            return metrics, last_train_step(os.path.join(ft_args.log_dir, ft_args.run_id))
+
+        metrics = measured(f"finetune_{tag}", run, args.finetune_batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        metrics["seconds"] = card["legs"][f"finetune_{tag}"]["seconds"]
+        return metrics
+
     def run_pretrain():
         resumed = latest_checkpoint(pre_dir)  # where --resume starts
         begun = int(os.path.basename(resumed)) if resumed else 0
         state = pretrain.main(pre_args, device=device)
         return None, int(state.step) - begun  # the state is dropped here
 
+    if args.scratch_only:
+        results.update(pretrain_seconds=None, pretrain_ckpt=None,
+                       pretrain_loss_first=None, pretrain_loss_last=None)
+        print("[quality_gate] finetuning from scratch alone ...")
+        results["finetune_scratch"] = run_finetune("scratch", "NONE")
+        return write_results(args, results, card)
     if args.reuse_pretrain and finished_ckpt():
         print(f"[quality_gate] reusing pretrain checkpoint under {pre_dir}")
         results["pretrain_seconds"] = None
@@ -213,18 +239,6 @@ def main(argv=None):
     results["pretrain_loss_first"] = losses[0] if losses else None
     results["pretrain_loss_last"] = losses[-1] if losses else None
 
-    def run_finetune(tag, pretrain_type, pretrain_path=""):
-        ft_args = finetune.get_args(ft_argv(tag, pretrain_type, pretrain_path))
-
-        def run():
-            metrics = finetune.main(ft_args, device=device)
-            return metrics, last_train_step(os.path.join(ft_args.log_dir, ft_args.run_id))
-
-        metrics = measured(f"finetune_{tag}", run, args.finetune_batch)
-        metrics = {k: float(v) for k, v in metrics.items()}
-        metrics["seconds"] = card["legs"][f"finetune_{tag}"]["seconds"]
-        return metrics
-
     # ---- 2. finetune from the CP2 checkpoint ----
     print("[quality_gate] finetuning from the CP2 checkpoint ...")
     results["finetune_cp2"] = run_finetune("cp2", "CP2", pretrain_path)
@@ -245,6 +259,11 @@ def main(argv=None):
             results["finetune_cp2"].get("test_Dice", float("nan"))
             - results["finetune_scratch"].get("test_Dice", float("nan")))
 
+    return write_results(args, results, card)
+
+
+def write_results(args, results, card):
+    """Write the row and its ``card/`` twin under ``--out``; returns the row."""
     os.makedirs(args.out, exist_ok=True)
     out_path = os.path.join(args.out, "quality_gate.json")
     # one file per pool, ratio and seed, so sweeps do not overwrite each other

@@ -22,12 +22,18 @@ Layout: ``<root>/images/{train,val,test}_<i>.png`` +
 discovery and the FILENAME finetune split see the same partition.
 
 Usage: ``python -m cp2_tpu_torch.tools.synthetic_corpus --out DIR --size
-160 --n_train 400 --n_val 60 --n_test 80``
+160 --n_train 400 --n_val 60 --n_test 80``.  Beside the generator (the
+port's own): ``--digests FILE`` writes the sha256 of every image and mask,
+file and decoded pixels (``--hash_only`` for a corpus another generator
+wrote), and ``--check FILE`` holds a corpus to such a file, as
+``chip_smoke.py`` phase 22 does on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import os
 
 import numpy as np
@@ -255,6 +261,75 @@ def generate_unlabeled(out: str, size: int, n: int, seed: int = 0,
     return un_dir
 
 
+def digests(root: str) -> dict:
+    """``{"images/<name>.png": {"bytes": sha256, "pixels": sha256}, ...}``
+    for every PNG under ``<root>/images`` and ``<root>/masks``: the digest of
+    the file and of its decoded pixels (shape, dtype and values).  Training
+    reads the pixels; the file's bytes also depend on the zlib build that
+    encoded them."""
+    out = {}
+    for sub in ("images", "masks"):
+        for name in sorted(os.listdir(os.path.join(root, sub))):
+            path = os.path.join(root, sub, name)
+            with open(path, "rb") as f:
+                raw = f.read()
+            with Image.open(path) as im:
+                px = np.asarray(im)
+            header = f"{px.shape}{px.dtype}".encode()
+            out[f"{sub}/{name}"] = {"bytes": hashlib.sha256(raw).hexdigest(),
+                                    "pixels": hashlib.sha256(header + px.tobytes()).hexdigest()}
+    return out
+
+
+def compare_digests(root: str, reference: dict, pixels: dict = None) -> dict:
+    """``root``'s corpus against a digest file's ``files`` (``reference``):
+    the names missing on either side, the files whose decoded pixels
+    differ, the files whose bytes differ, and the largest absolute pixel
+    difference over the reference arrays in ``pixels`` (``{name: uint8
+    array}``, a few files kept whole beside the digests)."""
+    ours = digests(root)
+    names = sorted(set(ours) | set(reference))
+    missing = [n for n in names if n not in ours or n not in reference]
+    both = [n for n in names if n in ours and n in reference]
+    largest = 0
+    for name, want in (pixels or {}).items():
+        with Image.open(os.path.join(root, name)) as im:
+            got = np.asarray(im).astype(np.int16)
+        if got.shape != want.shape:
+            raise ValueError(f"{name}: shape {got.shape} against {want.shape}")
+        largest = max(largest, int(np.abs(got - want.astype(np.int16)).max()))
+    return {"files": len(both), "missing": missing,
+            "pixels_differ": [n for n in both if ours[n]["pixels"] != reference[n]["pixels"]],
+            "bytes_differ": [n for n in both if ours[n]["bytes"] != reference[n]["bytes"]],
+            "largest_pixel_difference": largest}
+
+
+def write_digests(root: str, path: str, config: dict) -> None:
+    """The digest file of ``root`` at ``path`` (JSON: ``config``, the
+    ``digests``), and beside it ``<stem>_pixels.npz``: the first image and
+    mask of each split kept whole, for the largest pixel difference."""
+    kept = {}
+    for name in sorted(f"{sub}/{split}_0000.png" for sub in ("images", "masks")
+                       for split in ("train", "val", "test")):
+        with Image.open(os.path.join(root, name)) as im:
+            kept[name] = np.asarray(im)
+    stem = os.path.splitext(path)[0]
+    np.savez_compressed(stem + "_pixels.npz", **kept)
+    with open(path, "w") as f:
+        json.dump({"config": config, "pixels": os.path.basename(stem) + "_pixels.npz",
+                   "files": digests(root)}, f, indent=0, sort_keys=True)
+        f.write("\n")
+
+
+def load_digests(path: str):
+    """``(config, files, pixels)`` of a digest file of ``write_digests``."""
+    with open(path) as f:
+        doc = json.load(f)
+    with np.load(os.path.join(os.path.dirname(path), doc["pixels"])) as z:
+        pixels = {name: z[name] for name in z.files}
+    return doc["config"], doc["files"], pixels
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True)
@@ -270,19 +345,40 @@ def main(argv=None):
                         "harder contrast/frequency calibration of 2; 4 = "
                         "difficulty interpolation of 2 and 3 (the gate "
                         "corpus)")
+    p.add_argument("--digests", default="",
+                   help="write the digest file of --out's images and masks here "
+                        "(JSON, with the first file of each split kept whole in an "
+                        ".npz beside it)")
+    p.add_argument("--hash_only", action="store_true",
+                   help="hash a corpus already under --out (another generator's), "
+                        "generate nothing")
+    p.add_argument("--check", default="",
+                   help="compare --out's corpus with this digest file: print the "
+                        "differing files and the largest pixel difference, exit 1 on "
+                        "any pixel difference")
     args = p.parse_args(argv)
-    generate(
-        args.out, args.size,
-        {"train": args.n_train, "val": args.n_val, "test": args.n_test},
-        args.seed, version=args.version,
-    )
-    if args.n_unlabeled:
-        generate_unlabeled(args.out, args.size, args.n_unlabeled, args.seed,
-                           version=args.version)
-    print(f"wrote {args.n_train}+{args.n_val}+{args.n_test}"
-          f"+{args.n_unlabeled}u "
-          f"{args.size}x{args.size} v{args.version} samples to {args.out}")
+    if args.check:
+        _, files, pixels = load_digests(args.check)
+        report = compare_digests(args.out, files, pixels)
+        print(json.dumps({k: v if isinstance(v, int) else len(v) for k, v in report.items()}))
+        return 1 if report["missing"] or report["pixels_differ"] else 0
+    if not args.hash_only:
+        generate(
+            args.out, args.size,
+            {"train": args.n_train, "val": args.n_val, "test": args.n_test},
+            args.seed, version=args.version,
+        )
+        if args.n_unlabeled:
+            generate_unlabeled(args.out, args.size, args.n_unlabeled, args.seed,
+                               version=args.version)
+        print(f"wrote {args.n_train}+{args.n_val}+{args.n_test}"
+              f"+{args.n_unlabeled}u "
+              f"{args.size}x{args.size} v{args.version} samples to {args.out}")
+    if args.digests:
+        write_digests(args.out, args.digests, {k: getattr(args, k) for k in (
+            "size", "n_train", "n_val", "n_test", "seed", "version")})
+        print(f"wrote the digests of {args.out} to {args.digests}")
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -25,9 +25,15 @@ finetune → test Dice, beside the same finetune from scratch);
   port, finetune from one 96-epoch pretrain (5952 steps); a scratch leg
   imported with ``--scratch_from`` equals the port row it names.
 * **Seed groups.**  ``reports/quality_torch/seed_spread/<group>/`` holds
-  five CP2 legs on one port pretrain, finetune seeds 0-4; their mean is
-  held to the JAX rows' of the same settings by a pooled two-sample t
-  rule, fixed before the runs (``test_seed_group_means_agree``).
+  five legs of one setting; their mean is held to the JAX rows' of the
+  same settings by a pooled two-sample t rule, fixed before the runs
+  (``test_seed_group_means_agree``).  Three shapes: five CP2 legs on one
+  port pretrain, finetune seeds 0-4 (``v4_u1600_r0.1``, ``v1_r0.3``);
+  five scratch legs alone, finetune seeds 0-4, no pretrain
+  (``v1_r0.3_scratch``); and five CP2 legs at finetune seed 0, each on a
+  pretrain of its own seed 0-4 (``v1_r0.3_pretrain_seeds``).  The
+  scratch group is also run with its finetunes in float32
+  (``v1_r0.3_scratch_fp32``), held to the same (bfloat16) JAX row.
 """
 
 import glob
@@ -198,7 +204,16 @@ def test_imported_scratch_leg_equals_its_source(path):
 
 
 SPREAD = os.path.join(REPO, "reports", "quality_torch", "seed_spread")
-SEED_GROUPS = ("v4_u1600_r0.1", "v1_r0.3")
+# group: (the leg it runs, what its five rows vary)
+SEED_GROUP_SHAPES = {
+    "v4_u1600_r0.1": ("cp2", "seed"),
+    "v1_r0.3": ("cp2", "seed"),
+    "v1_r0.3_scratch": ("scratch", "seed"),
+    "v1_r0.3_pretrain_seeds": ("cp2", "pretrain_seed"),
+    "v1_r0.3_scratch_fp32": ("scratch", "seed"),
+}
+FLOAT32_GROUPS = {"v1_r0.3_scratch_fp32"}  # finetuned with --no-bf16, held to JAX's bf16 row
+SEED_GROUPS = tuple(SEED_GROUP_SHAPES)
 # Student's t, 97.5 % quantile, by degrees of freedom
 T_975 = {4: 2.776, 5: 2.571}
 # (group, leg): its ROADMAP.md §3 entry, for a group whose rule says fault
@@ -207,6 +222,18 @@ GROUP_FAULTS = {
         "ROADMAP.md §3, 'the v1 ratio-0.3 row's CP2-init leg': five finetune seeds on one "
         "port pretrain average 0.8291 (SD 0.0073) against JAX's 0.8044, 0.0247 apart, over "
         "the rule's margin of 0.0221",
+    ("v1_r0.3_scratch", "scratch"):
+        "ROADMAP.md §3, 'the v1 ratio-0.3 row's CP2-init leg': five scratch finetune seeds "
+        "average 0.8720 (SD 0.0027) against JAX's 0.8613, 0.0107 apart, over the rule's "
+        "margin of 0.0081: the finetune alone sits above JAX",
+    ("v1_r0.3_pretrain_seeds", "cp2"):
+        "ROADMAP.md §3, 'the v1 ratio-0.3 row's CP2-init leg': finetune seed 0 on five port "
+        "pretrain seeds averages 0.8343 (SD 0.0049) against JAX's 0.8044, 0.0299 apart, over "
+        "the rule's margin of 0.0149",
+    ("v1_r0.3_scratch_fp32", "scratch"):
+        "ROADMAP.md §3, 'the v1 ratio-0.3 row's CP2-init leg': the scratch group finetuned in "
+        "float32 averages 0.8738 (SD 0.0013), as in bfloat16, against JAX's 0.8613, over the "
+        "rule's margin of 0.0040: the finetune's precision does not move it",
 }
 
 
@@ -231,7 +258,8 @@ def _u1600_r01(rows):
 
 # the five-seed groups' CP2 legs, and both legs of the v1 pool-1600 ratio-0.1
 # rows (seeds 0-2 on one pretrain, in JAX as in the port)
-GROUP_CASES = [(g, "cp2") for g in SEED_GROUPS] + [("u1600_r0.1", leg) for leg in LEGS]
+GROUP_CASES = [(g, leg) for g, (leg, _) in SEED_GROUP_SHAPES.items()] + [
+    ("u1600_r0.1", leg) for leg in LEGS]
 
 
 def _groups():
@@ -295,22 +323,83 @@ def test_the_t_constants_are_students_quantiles():
 
 @pytest.mark.parametrize("group", SEED_GROUPS)
 def test_seed_group_is_five_finetune_seeds_on_one_pretrain(group):
+    """Each group's shape: five finetune seeds 0-4 on one pretrain trained
+    by the first seed's call (CP2 legs alone), or on none (scratch legs
+    alone); or finetune seed 0 on five pretrains, one of each seed 0-4,
+    each trained by its own call (CP2 legs alone).  Every row at one
+    training setting that a JAX row has, each card naming an NVIDIA card
+    and counting one launch of each dense-loss kernel a pretrain step."""
+    leg, varied = SEED_GROUP_SHAPES[group]
     paths = _group_rows(group)
     rows = [_load(p) for p in paths]
     assert len(rows) == 5
-    assert sorted(r["config"]["seed"] for r in rows) == [0, 1, 2, 3, 4]
-    assert len({r["pretrain_ckpt"] for r in rows}) == 1
     assert len({_training(r) for r in rows}) == 1 and _jax_at(_training(rows[0]))
-    assert all(r["config"]["pretrain_seed"] == 0 for r in rows)
+    seeds = sorted(r["config"]["seed"] for r in rows)
+    ckpts = {r["pretrain_ckpt"] for r in rows}
+    if varied == "seed":
+        assert seeds == [0, 1, 2, 3, 4] and len(ckpts) == 1
+    else:
+        assert seeds == [0] * 5 and len(ckpts) == 5
+        assert sorted(r["config"]["pretrain_seed"] for r in rows) == [0, 1, 2, 3, 4]
     pretrains = 0
     for path, row in zip(paths, rows):
-        assert math.isfinite(row["finetune_cp2"]["test_Dice"]) and "finetune_scratch" not in row
+        assert row["config"].get("finetune_float32", False) == (group in FLOAT32_GROUPS)
+        assert set(row) & set(LEGS.values()) == {LEGS[leg]}
+        assert math.isfinite(row[LEGS[leg]]["test_Dice"])
+        if leg == "scratch":
+            assert row["pretrain_ckpt"] is None and row["pretrain_seconds"] is None
+        else:
+            assert row["config"]["pretrain_seed"] in (0, 1, 2, 3, 4)
+            assert varied == "pretrain_seed" or row["config"]["pretrain_seed"] == 0
         with open(os.path.join(os.path.dirname(path), "card", os.path.basename(path))) as f:
             card = json.load(f)
         assert card["card"].startswith("NVIDIA ") and card["card"].endswith(" W")
+        assert set(card["legs"]) - {"pretrain"} == {LEGS[leg]}
         pretrains += "pretrain" in card["legs"]
-        for leg, cost in card["legs"].items():
-            steps = cost["steps"] if leg == "pretrain" else 0
+        for name, cost in card["legs"].items():
+            steps = cost["steps"] if name == "pretrain" else 0
             assert cost["launches"] == {"dense_pair_loss_fwd": steps,
                                         "dense_pair_loss_bwd": steps}
-    assert pretrains == 1  # the first seed's call trained it, the others reused it
+    # the first seed's call trained the shared pretrain; each pretrain seed's
+    # call trained its own; a scratch group trains none
+    assert pretrains == {"scratch": 0, "cp2": 1 if varied == "seed" else 5}[leg]
+
+
+@pytest.mark.parametrize("group", SEED_GROUPS)
+def test_seed_group_tool_reads_each_shape(group, capsys):
+    """``seed_group`` tells the group's shape from its rows and writes the
+    verdict of each leg the rows have."""
+    from cp2_tpu_torch.tools import seed_group
+
+    leg, varied = SEED_GROUP_SHAPES[group]
+    assert seed_group.varied([_load(p) for p in _group_rows(group)]) == varied
+    assert seed_group.main([os.path.join(SPREAD, group)]) == 0
+    table = [line for line in capsys.readouterr().out.splitlines() if line.startswith("| ")]
+    verdict = "fault" if (group, leg) in GROUP_FAULTS else "seed noise"
+    assert [line.split(" | ")[0] for line in table[1:]] == [f"| {leg}"]  # after the header
+    assert table[1].endswith(f"| {verdict} |")
+
+
+def test_seed_group_tool_gathers_a_pretrain_seed_group(tmp_path):
+    """``--gather``: rows of one name in a directory each come into the
+    group named by their pretrain seed, with their card twins."""
+    import shutil
+
+    from cp2_tpu_torch.tools import seed_group
+
+    sources = []
+    for path in _group_rows("v1_r0.3_pretrain_seeds"):
+        pseed = _load(path)["config"]["pretrain_seed"]
+        src = tmp_path / f"p{pseed}"
+        (src / "card").mkdir(parents=True)
+        shutil.copyfile(path, src / "quality_gate_r0.3_s0.json")
+        shutil.copyfile(os.path.join(os.path.dirname(path), "card", os.path.basename(path)),
+                        src / "card" / "quality_gate_r0.3_s0.json")
+        sources.append(str(src))
+    into = tmp_path / "group"
+    assert seed_group.main([*sources, "--gather", str(into), "--out", str(into / "S.md")]) == 0
+    names = sorted(os.path.basename(p) for p in _group_rows("v1_r0.3_pretrain_seeds"))
+    assert sorted(os.listdir(into)) == sorted(names + ["S.md", "card"])
+    assert sorted(os.listdir(into / "card")) == names
+    with open(os.path.join(SPREAD, "v1_r0.3_pretrain_seeds", "SUMMARY.md")) as f:
+        assert (into / "S.md").read_text() == f.read()

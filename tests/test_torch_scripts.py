@@ -271,9 +271,10 @@ def test_gate_sweep_runs_the_jax_rows_through_the_ports_quality_gate(stub_path, 
 GATE_ROWS = os.path.join(REPO, "cp2_tpu_torch", "tools", "run_gate_rows.sh")
 
 
-def _gate_calls(stub_path, tmp_path, mode):
+def _gate_calls(stub_path, tmp_path, mode, others=None):
     """``run_gate_rows.sh mode``'s gate calls, each parsed by the port's
-    gate and checked by its ``--dryrun``."""
+    gate and checked by its ``--dryrun``.  Any other call is a failure,
+    unless ``others`` (a list) is given: the other calls' argv go there."""
     from cp2_tpu_torch.tools import quality_gate
 
     proc, calls = _stubbed(GATE_ROWS, dict(os.environ), stub_path, tmp_path, 1, mode)
@@ -281,6 +282,10 @@ def _gate_calls(stub_path, tmp_path, mode):
     out = []
     for call in calls:
         assert os.path.realpath(call["cwd"]) == os.path.realpath(REPO)
+        if others is not None and call["argv"][:3] != [
+                "python", "-m", "cp2_tpu_torch.tools.quality_gate"]:
+            others.append(call["argv"])
+            continue
         assert call["argv"][:3] == ["python", "-m", "cp2_tpu_torch.tools.quality_gate"]
         flags = call["argv"][3:]
         assert quality_gate.main([*flags, "--dryrun"])["dryrun"]
@@ -335,3 +340,59 @@ def test_gate_rows_run_five_finetune_seeds_per_seed_group(stub_path, tmp_path):
         assert len({(c.root, c.log_dir) for c in group}) == 1
     assert len({(g[0].root) for g in groups.values()}) == 2
     assert len({(g[0].log_dir) for g in groups.values()}) == 2
+
+
+def test_gate_rows_split_the_v1_r03_setting_into_two_groups(stub_path, tmp_path):
+    """``run_gate_rows.sh v1_r0.3_groups``: the scratch leg alone at
+    finetune seeds 0-4, then the CP2 leg at finetune seed 0 on pretrain
+    seeds 0-4 (each trains its own pretrain, each row to a directory of its
+    own), all on the v1 pool-400 corpus and log directory of the
+    ``seed_spread`` group at ratio 0.3; then ``seed_group`` summarises each
+    group (gathering the pretrain-seed rows into theirs) and the corpus is
+    held to its committed digests."""
+    others = []
+    calls = _gate_calls(stub_path, tmp_path, "v1_r0.3_groups", others)
+    (tmp_path / "spread").mkdir()
+    spread = _gate_calls(stub_path, tmp_path / "spread", "seed_spread")
+    v1 = [c for c in spread if c.out.endswith("v1_r0.3")][0]
+    scratch, pseeds = calls[:5], calls[5:]
+    assert len(pseeds) == 5
+    for c in calls:
+        assert (c.root, c.log_dir, c.train_ratio, c.corpus_version, c.n_unlabeled,
+                c.pretrain_epochs, c.finetune_epochs) == (v1.root, v1.log_dir, 0.3, 1, 0, 60, 40)
+    group = os.path.join("reports", "quality_torch", "seed_spread")
+    assert [c.seed for c in scratch] == [0, 1, 2, 3, 4]
+    assert all(c.scratch_only and c.out == os.path.join(group, "v1_r0.3_scratch")
+               for c in scratch)
+    assert [(c.seed, c.pretrain_seed) for c in pseeds] == [(0, p) for p in range(5)]
+    assert all(c.reuse_pretrain and c.skip_scratch and not c.scratch_only for c in pseeds)
+    assert len({c.out for c in pseeds}) == 5
+    module = ["python", "-m", "cp2_tpu_torch.tools.seed_group"]
+    summary, gathered, corpus = others
+    assert summary == module + [os.path.join(group, "v1_r0.3_scratch"), "--out",
+                                os.path.join(group, "v1_r0.3_scratch", "SUMMARY.md")]
+    assert gathered[:3] == module and gathered[-4:] == [
+        "--gather", os.path.join(group, "v1_r0.3_pretrain_seeds"), "--out",
+        os.path.join(group, "v1_r0.3_pretrain_seeds", "SUMMARY.md")]
+    assert corpus == ["python", "-m", "cp2_tpu_torch.tools.synthetic_corpus", "--out", v1.root,
+                      "--check", os.path.join("reports", "quality_torch",
+                                              "corpus_v1_s0_160.json")]
+
+
+def test_gate_rows_run_the_scratch_group_in_float32(stub_path, tmp_path):
+    """``run_gate_rows.sh v1_r0.3_scratch_fp32``: the scratch group's five
+    calls again with ``--finetune_float32``, on the same corpus under a log
+    directory of their own, into a group of their own."""
+    others = []
+    calls = _gate_calls(stub_path, tmp_path, "v1_r0.3_scratch_fp32", others)
+    (tmp_path / "bf16").mkdir()
+    bf16 = _gate_calls(stub_path, tmp_path / "bf16", "v1_r0.3_groups", [])[:5]
+    group = os.path.join("reports", "quality_torch", "seed_spread", "v1_r0.3_scratch_fp32")
+    assert [c.seed for c in calls] == [0, 1, 2, 3, 4]
+    for c, ref in zip(calls, bf16):
+        assert c.finetune_float32 and not ref.finetune_float32
+        assert c.root == ref.root and c.log_dir != ref.log_dir and c.out == group
+        assert vars(c) | {"finetune_float32": False, "log_dir": "", "out": ""} == \
+            vars(ref) | {"log_dir": "", "out": ""}
+    assert others == [["python", "-m", "cp2_tpu_torch.tools.seed_group", group, "--out",
+                       os.path.join(group, "SUMMARY.md")]]

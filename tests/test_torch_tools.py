@@ -68,6 +68,41 @@ def test_synthetic_corpus_writes_the_same_files(tmp_path):
                 (tmp_path / "ref" / sub / name).read_bytes(), (sub, name)
 
 
+def test_synthetic_corpus_matches_the_committed_digests(tmp_path):
+    """The port's generator writes the quality gate's v1 pool-400 corpus
+    (seed 0, 160x160, 400/60/80: ``quality_gate.py``'s defaults) whose 1080
+    files equal, in pixels and in bytes, the digests committed from the JAX
+    tool's corpus (``reports/quality_torch/corpus_v1_s0_160.json``); a pixel
+    changed in a file kept whole shows in the count and in the largest
+    difference, a file removed in the missing names."""
+    from PIL import Image
+
+    from cp2_tpu_torch.tools import quality_gate
+
+    path = os.path.join(REPO, "reports", "quality_torch", "corpus_v1_s0_160.json")
+    config, files, pixels = synthetic_corpus.load_digests(path)
+    gate = quality_gate.get_args([])
+    assert config == {"size": gate.size, "n_train": gate.n_train, "n_val": gate.n_val,
+                      "n_test": gate.n_test, "seed": gate.seed, "version": gate.corpus_version}
+    assert len(files) == 2 * (400 + 60 + 80) and len(pixels) == 6
+    root = str(tmp_path / "corpus")
+    synthetic_corpus.generate(root, config["size"],
+                              {k: config[f"n_{k}"] for k in ("train", "val", "test")},
+                              config["seed"], version=config["version"])
+    report = synthetic_corpus.compare_digests(root, files, pixels)
+    assert report == {"files": 1080, "missing": [], "pixels_differ": [], "bytes_differ": [],
+                      "largest_pixel_difference": 0}
+    name = "images/val_0000.png"
+    img = np.asarray(Image.open(os.path.join(root, name))).copy()
+    img[3, 4, 1] = (int(img[3, 4, 1]) + 7) % 256
+    Image.fromarray(img).save(os.path.join(root, name))
+    os.remove(os.path.join(root, "masks", "test_0079.png"))
+    report = synthetic_corpus.compare_digests(root, files, pixels)
+    assert report["missing"] == ["masks/test_0079.png"]
+    assert report["pixels_differ"] == report["bytes_differ"] == [name]
+    assert report["largest_pixel_difference"] in (7, 249)
+
+
 def _flags(path):
     """The ``--flags`` a tool's argparse parser declares, from its source."""
     tree = ast.parse(open(path).read())
@@ -77,10 +112,14 @@ def _flags(path):
 
 
 def test_quality_gate_takes_the_jax_flags():
+    """Every flag of the JAX gate, and two of the port's own: ``--scratch_only``
+    (the scratch leg alone, for a group of scratch seeds) and
+    ``--finetune_float32`` (the finetunes with ``--no-bf16``)."""
     from cp2_tpu_torch.tools import quality_gate
 
     ours = _flags(quality_gate.__file__)
-    assert ours == _flags(os.path.join(REPO, "tools", "quality_gate.py"))
+    assert ours == _flags(os.path.join(REPO, "tools", "quality_gate.py")) | {
+        "--scratch_only", "--finetune_float32"}
     dry = quality_gate.main(["--dryrun", "--device", "cpu"])
     assert dry["dryrun"] and dry["pre_args"].pretrain_type.name == "CP2"
 
@@ -182,6 +221,30 @@ def test_quality_gate_reuses_a_longer_pretrain_and_imports_the_scratch_leg(tmp_p
     with open(out / "card" / "quality_gate_u4_r1.0_s1.json") as f:
         card = json.load(f)
     assert set(card["legs"]) == {"finetune_cp2"}
+
+
+def test_quality_gate_runs_the_scratch_leg_alone(tmp_path, monkeypatch):
+    """``--scratch_only``: no pretrain and no CP2 leg, the scratch leg's
+    keys as in a full row, and a card with that one leg; with
+    ``--finetune_float32`` the finetune runs with ``--no-bf16``."""
+    from cp2_tpu_torch.train import finetune
+
+    run, out = _tiny_gate(tmp_path, monkeypatch)
+    seen = []
+    monkeypatch.setattr(finetune, "main", lambda args, device, main=finetune.main: (
+        seen.append(args.bf16), main(args, device=device))[1])
+    results = run("--scratch_only", "--seed", "1", "--finetune_float32")
+    assert seen == [False]  # --finetune_float32: the finetune ran with --no-bf16
+    with open(out / "quality_gate_r1.0_s1.json") as f:
+        written = json.load(f)
+    assert set(written) == set(results) == {
+        "config", "pretrain_seconds", "pretrain_ckpt", "pretrain_loss_first",
+        "pretrain_loss_last", "finetune_scratch"}
+    assert written["pretrain_ckpt"] is None and written["pretrain_seconds"] is None
+    assert not (tmp_path / "logs" / "qg_pretrain_s1").exists()
+    assert np.isfinite(written["finetune_scratch"]["test_Dice"])
+    with open(out / "card" / "quality_gate_r1.0_s1.json") as f:
+        assert set(json.load(f)["legs"]) == {"finetune_scratch"}
 
 
 def test_converter_graft_equals_the_bridge(tmp_path):
