@@ -27,6 +27,7 @@ import torch
 
 from cp2_tpu_torch.augment import functional as F
 from cp2_tpu_torch.parallel import current_layout, take_rows
+from cp2_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -167,12 +168,13 @@ def pretrain_batch_augment(generator: torch.Generator, raw: Dict[str, torch.Tens
                            cfg: AugmentConfig) -> Dict[str, torch.Tensor]:
     """Sample on ``generator`` and apply: the full CP2 pretrain batch.  The
     three streams share one frame size, as the CLI's loaders give them."""
-    fg = raw["fg"]
-    if raw["bg0"].shape != fg.shape or raw["bg1"].shape != fg.shape:
-        raise ValueError(f"frames of one size expected: fg {tuple(fg.shape)}, "
-                         f"bg0 {tuple(raw['bg0'].shape)}, bg1 {tuple(raw['bg1'].shape)}")
-    params = sample_pretrain_params(generator, fg.shape[0], tuple(fg.shape[1:3]), cfg)
-    return apply_pretrain_augment(raw, params, cfg)
+    with span("augment.pretrain"):
+        fg = raw["fg"]
+        if raw["bg0"].shape != fg.shape or raw["bg1"].shape != fg.shape:
+            raise ValueError(f"frames of one size expected: fg {tuple(fg.shape)}, "
+                             f"bg0 {tuple(raw['bg0'].shape)}, bg1 {tuple(raw['bg1'].shape)}")
+        params = sample_pretrain_params(generator, fg.shape[0], tuple(fg.shape[1:3]), cfg)
+        return apply_pretrain_augment(raw, params, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -299,9 +301,10 @@ def apply_finetune_augment(images: torch.Tensor, masks: torch.Tensor,
 def finetune_augment_batch(generator: torch.Generator, images: torch.Tensor,
                            masks: torch.Tensor, cfg: FinetuneAugmentConfig):
     """Sample on ``generator`` and apply: the finetune train batch."""
-    params = sample_finetune_params(generator, images.shape[0], tuple(images.shape[1:3]),
-                                    cfg, images.shape[3])
-    return apply_finetune_augment(images, masks, params)
+    with span("augment.finetune"):
+        params = sample_finetune_params(generator, images.shape[0], tuple(images.shape[1:3]),
+                                        cfg, images.shape[3])
+        return apply_finetune_augment(images, masks, params)
 
 
 class EvalAugParams(NamedTuple):

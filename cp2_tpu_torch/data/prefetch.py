@@ -25,6 +25,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from cp2_tpu_torch.utils.profiling import span
+
 _DONE = "done"
 _ITEM = "item"
 _ERROR = "error"
@@ -83,7 +85,8 @@ class DevicePrefetcher:
     def __next__(self):
         if self._stop.is_set():
             raise StopIteration
-        msg, payload = self._q.get()
+        with span("data.wait"):
+            msg, payload = self._q.get()
         if msg == _ITEM:
             return payload
         if msg == _DONE:

@@ -38,6 +38,7 @@ from cp2_tpu_torch.ssl.hparams import SSLHyperParams
 from cp2_tpu_torch.ssl.queue import queue_enqueue
 from cp2_tpu_torch.ssl.state import PretrainState
 from cp2_tpu_torch.types import BackboneType, PretrainType
+from cp2_tpu_torch.utils.profiling import span
 
 
 def backbone_output_stride_of(model_cfg: dict, backbone_type: BackboneType,
@@ -162,57 +163,74 @@ def make_pretrain_step(
     kw = dict(metrics_level=metrics_level, epoch_scalars=epoch_scalars)
 
     def step_fn(state: PretrainState, batch, seed: int = 0):
-        if augment_fn is not None:
-            device = state.queue.device
-            batch = augment_fn(step_generator(seed, state.step, device), batch)
-        # momentum update BEFORE the key forward (builder.py:726,1272)
-        state.ema_update(hp.momentum)
-        if pt in (PretrainType.CP2, PretrainType.PROPOSED):
-            key_out = obj.cp2_key_forward(state.ema_model, batch)
-            loss, aux = obj.cp2_objective(state.model, key_out, batch, state.queue, hp,
-                                          output_stride, **kw)
-        elif pt == PretrainType.MOCO:
-            key_out = obj.moco_key_forward(state.ema_model, batch)
-            loss, aux = obj.moco_objective(state.model, key_out, batch, state.queue, hp,
-                                           **kw)
-        elif pt == PretrainType.BYOL:
-            key_out = obj.byol_key_forward(state.ema_model, batch)
-            loss, aux = obj.byol_objective(state.model, key_out, batch, hp, **kw)
-        else:
-            # the reference's momentum update lives inside get_key_features
-            # (builder.py:723-726): the symmetric loss applies the EMA twice
-            # a step, and direction 2's keys (img_a) come from the
-            # twice-updated encoder, its BatchNorm chained from direction 1
-            key_out = [obj.densecl_key_forward(state.ema_model, batch["img_b"])]
-            if hp.use_symmetrical_loss:
+        with span("pretrain.step"):
+            if augment_fn is not None:
+                device = state.queue.device
+                batch = augment_fn(step_generator(seed, state.step, device), batch)
+            # momentum update BEFORE the key forward (builder.py:726,1272)
+            with span("pretrain.ema"):
                 state.ema_update(hp.momentum)
-                key_out.append(obj.densecl_key_forward(state.ema_model, batch["img_a"]))
-            loss, aux = obj.densecl_objective(
-                state.model, key_out, batch, (state.queue, state.queue2), hp,
-                backbone_output_stride, state.step, **kw)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for p in state.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        pmean_gradients(state.model.parameters())
-        state.optimizer.step()
-        enq = aux["enqueue"]
-        if "queue" in enq:
-            state.queue_ptr = queue_enqueue(state.queue, state.queue_ptr,
-                                            concat_all_gather(enq["queue"]))
-        if "queue2" in enq:
-            state.queue2_ptr = queue_enqueue(state.queue2, state.queue2_ptr,
-                                             concat_all_gather(enq["queue2"]))
-        state.step += 1
-        metrics = dict(aux["metrics"])
-        metrics["loss"] = loss.detach()
-        if epoch_scalars:
-            metrics["_epoch_vec"] = epoch_vector(pt, metrics)
-        if metrics_level >= 1:
-            metrics.update(pmean_metrics(
-                {k: v for k, v in metrics.items() if not k.startswith("_")}))
-        return state, metrics
+            if pt in (PretrainType.CP2, PretrainType.PROPOSED):
+                with span("pretrain.key_forward"):
+                    key_out = obj.cp2_key_forward(state.ema_model, batch)
+                with span("pretrain.objective"):
+                    loss, aux = obj.cp2_objective(state.model, key_out, batch, state.queue, hp,
+                                                  output_stride, **kw)
+            elif pt == PretrainType.MOCO:
+                with span("pretrain.key_forward"):
+                    key_out = obj.moco_key_forward(state.ema_model, batch)
+                with span("pretrain.objective"):
+                    loss, aux = obj.moco_objective(state.model, key_out, batch, state.queue, hp,
+                                                   **kw)
+            elif pt == PretrainType.BYOL:
+                with span("pretrain.key_forward"):
+                    key_out = obj.byol_key_forward(state.ema_model, batch)
+                with span("pretrain.objective"):
+                    loss, aux = obj.byol_objective(state.model, key_out, batch, hp, **kw)
+            else:
+                # the reference's momentum update lives inside get_key_features
+                # (builder.py:723-726): the symmetric loss applies the EMA twice
+                # a step, and direction 2's keys (img_a) come from the
+                # twice-updated encoder, its BatchNorm chained from direction 1
+                with span("pretrain.key_forward"):
+                    key_out = [obj.densecl_key_forward(state.ema_model, batch["img_b"])]
+                if hp.use_symmetrical_loss:
+                    with span("pretrain.ema"):
+                        state.ema_update(hp.momentum)
+                    with span("pretrain.key_forward"):
+                        key_out.append(obj.densecl_key_forward(state.ema_model, batch["img_a"]))
+                with span("pretrain.objective"):
+                    loss, aux = obj.densecl_objective(
+                        state.model, key_out, batch, (state.queue, state.queue2), hp,
+                        backbone_output_stride, state.step, **kw)
+            with span("pretrain.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("pretrain.grad_reduce"):
+                for p in state.model.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                pmean_gradients(state.model.parameters())
+            with span("pretrain.optimizer"):
+                state.optimizer.step()
+            enq = aux["enqueue"]
+            with span("pretrain.enqueue"):
+                if "queue" in enq:
+                    state.queue_ptr = queue_enqueue(state.queue, state.queue_ptr,
+                                                    concat_all_gather(enq["queue"]))
+                if "queue2" in enq:
+                    state.queue2_ptr = queue_enqueue(state.queue2, state.queue2_ptr,
+                                                     concat_all_gather(enq["queue2"]))
+            state.step += 1
+            metrics = dict(aux["metrics"])
+            metrics["loss"] = loss.detach()
+            with span("pretrain.metrics"):
+                if epoch_scalars:
+                    metrics["_epoch_vec"] = epoch_vector(pt, metrics)
+                if metrics_level >= 1:
+                    metrics.update(pmean_metrics(
+                        {k: v for k, v in metrics.items() if not k.startswith("_")}))
+            return state, metrics
 
     return step_fn
 

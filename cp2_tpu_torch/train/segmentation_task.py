@@ -42,6 +42,7 @@ from cp2_tpu_torch.ops.losses import softmax_cross_entropy
 from cp2_tpu_torch.ops.metrics import ConfusionState, compute_metrics
 from cp2_tpu_torch.ops.resize import resize_bilinear
 from cp2_tpu_torch.parallel import pmean_gradients
+from cp2_tpu_torch.utils.profiling import span
 
 BACKGROUND_CLASS = 0
 
@@ -163,29 +164,36 @@ def make_seg_steps(num_classes: int, image_hw: Tuple[int, int], *,
     base_loss = loss_fn if loss_fn is not None else softmax_cross_entropy
 
     def train_step(state: SegTrainState, batch, generator, confusion: ConfusionState):
-        model = state.model
-        model.train()
-        images, masks = batch["image"], batch["mask"]
-        has_aux = getattr(model, "auxiliary_head", None) is not None
-        if has_aux:
-            logits, aux_logits, preds = seg_forward(model, images, image_hw, with_aux=True,
-                                                    generator=generator)
-            loss = (base_loss(logits, masks)
-                    + aux_loss_weight * softmax_cross_entropy(aux_logits, masks))
-        else:
-            logits, preds = seg_forward(model, images, image_hw, generator=generator)
-            loss = base_loss(logits, masks)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for name, p in model.named_parameters():
-            # a zero gradient, not None: torch's optimizers skip a parameter
-            # without one, where optax still decays it
-            if p.grad is None or (frozen is not None and frozen(name)):
-                p.grad = torch.zeros_like(p)
-        pmean_gradients(model.parameters())
-        state.optimizer.step()
-        state.step += 1
-        return state, confusion.update(preds, masks), {"loss": loss.detach()}
+        with span("finetune.step"):
+            model = state.model
+            model.train()
+            images, masks = batch["image"], batch["mask"]
+            has_aux = getattr(model, "auxiliary_head", None) is not None
+            with span("finetune.forward"):
+                if has_aux:
+                    logits, aux_logits, preds = seg_forward(model, images, image_hw, with_aux=True,
+                                                            generator=generator)
+                    loss = (base_loss(logits, masks)
+                            + aux_loss_weight * softmax_cross_entropy(aux_logits, masks))
+                else:
+                    logits, preds = seg_forward(model, images, image_hw, generator=generator)
+                    loss = base_loss(logits, masks)
+            with span("finetune.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("finetune.grad_reduce"):
+                for name, p in model.named_parameters():
+                    # a zero gradient, not None: torch's optimizers skip a parameter
+                    # without one, where optax still decays it
+                    if p.grad is None or (frozen is not None and frozen(name)):
+                        p.grad = torch.zeros_like(p)
+                pmean_gradients(model.parameters())
+            with span("finetune.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            with span("finetune.confusion"):
+                confusion = confusion.update(preds, masks)
+            return state, confusion, {"loss": loss.detach()}
 
     @torch.no_grad()
     def eval_step(state: SegTrainState, batch, confusion: ConfusionState):

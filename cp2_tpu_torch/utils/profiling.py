@@ -7,9 +7,27 @@ and cudnn determinism toggles):
 * ``trace`` — a ``torch.profiler`` context writing a Chrome trace
   (``trace.json``, loadable in Perfetto or ``chrome://tracing``) of the
   host and, where there is a card, its kernels.
+* ``span(name)`` — a named host span (``record_function``) while a
+  profiler records, a shared no-op context otherwise.  Any profiler sees
+  them: ``trace``, ``tools/profile_step.py``, the benchmark's traced run.
+  The program's spans:
+
+  - ``pretrain.step`` (``ssl/train_step.py``), holding in order
+    ``augment.pretrain``, ``pretrain.ema``, ``pretrain.key_forward``,
+    ``pretrain.objective``, ``pretrain.backward``, ``pretrain.grad_reduce``,
+    ``pretrain.optimizer``, ``pretrain.enqueue``, ``pretrain.metrics``
+    (DenseCL's symmetric loss takes ``ema`` and ``key_forward`` twice);
+  - ``finetune.step`` (``train/segmentation_task.py``'s train step),
+    holding ``finetune.forward``, ``finetune.backward``,
+    ``finetune.grad_reduce``, ``finetune.optimizer``,
+    ``finetune.confusion``;
+  - ``augment.pretrain`` and ``augment.finetune`` (``augment/pipeline.py``);
+  - ``data.wait`` (``data/prefetch.py``): the consumer blocked on the next
+    prefetched item.
 * ``StepTimer`` — wall-clock step statistics with p50/p90; ``stop(probe)``
   first synchronises the probe tensor's device, as the JAX timer blocks on
-  its probe.
+  its probe, so ``--use_profiler`` times a loop held in lockstep with the
+  card.
 * ``device_memory_summary`` — live / peak / limit bytes of each card from
   ``torch.cuda.memory_stats``, under the JAX keys; ``{}`` with no card.
 * ``find_nonfinite`` / ``assert_finite`` — NaN/Inf guards over a state
@@ -47,6 +65,19 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_NAME))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("pretrain.step"): ...`` records a host span named
+    ``name`` while a ``torch.profiler`` records; otherwise it is one shared
+    ``nullcontext`` (well under a microsecond, where an idle
+    ``record_function`` costs over ten)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 class StepTimer:
     def __init__(self):
         self.samples: List[float] = []
@@ -56,6 +87,9 @@ class StepTimer:
         self._t0 = time.perf_counter()
 
     def stop(self, probe: Optional[torch.Tensor] = None) -> None:
+        """Close the sample; a CUDA ``probe`` first synchronizes its card.
+        That sync comes on every step, so the samples time a loop in
+        lockstep with the card, not the loop that queues steps ahead."""
         if probe is not None and probe.is_cuda:
             torch.cuda.synchronize(probe.device)
         self.samples.append(time.perf_counter() - self._t0)
