@@ -238,8 +238,25 @@ Phases, in order; any failure exits non-zero:
             ``F.conv2d`` with the bias bit for bit; a linear layer's fused
             bias (cuBLASLt) is counted beside it.
 
+23. split  the tap split of ``models/layers.py::conv2d`` against cuDNN's
+            dilated convolution in bfloat16 at the cells' shapes, the way
+            phase 22 checks rounding: (64, 2048, 14, 14) and (16, 2048, 22,
+            22) -> 512 at d = 12 and 18 (where ``tap_split_engages``),
+            forward, input gradient and weight gradient; each within 5 % of
+            the largest magnitude of cuDNN's (``tests/test_torch_model.py``'s
+            bfloat16 tolerance) and no farther from the float32 result on
+            the same bfloat16 operands than ``tests/test_torch_tap_split.py``
+            lets the CPU's split lie from its plain convolution (2, 2.5 for
+            the input gradient, 2 times cuDNN's distance, normwise); the
+            share of elements that differ from cuDNN's; a second fwd+bwd run
+            under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync,
+            so the split can be captured in a CUDA graph); and the time of
+            both ways.
+
 ``python3 chip_smoke.py --preflight`` runs phases 1-4 alone, as the
 experiment drivers' ``preflight`` does; it exits non-zero on any failure.
+``python3 chip_smoke.py --tap-split`` runs phase 1's device check and
+phase 23 alone.
 
 Phases 16 and 17 run the CLI with PyTorch's default backends (cuDNN
 convolutions in TF32, matrix products in float32), as a user runs it.
@@ -3943,6 +3960,7 @@ def check_tools():
 
 COMPARE, COMPARE_ONE = "--compare", "--compare-one"
 PREFLIGHT = "--preflight"
+TAP_SPLIT = "--tap-split"
 
 
 # ---------------------------------------------------------------------------
@@ -4157,6 +4175,101 @@ def check_corpus_and_rounding():
     return {"corpus": corpus, "bf16_bias": rounding}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the tap split against cuDNN's dilated convolution, bfloat16
+# ---------------------------------------------------------------------------
+
+TAP_SPLIT_SHAPES = ((64, 14), (16, 22))  # (batch, grid): the pretrain's, the finetune's
+TAP_SPLIT_MAX_ABS = 5e-2  # tests/test_torch_model.py's bfloat16 tolerance
+TAP_SPLIT_NORM_RATIO = {"output": 2.0, "input_gradient": 2.5, "weight_gradient": 2.0}
+
+
+def check_tap_split():
+    """Phase 23; returns its numbers."""
+    import torch.nn.functional as F
+
+    from cp2_tpu_torch.models import layers
+
+    numbers, problems = {}, []
+    for n, hw in TAP_SPLIT_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(hw)
+        x = torch.randn(n, 2048, hw, hw, device="cuda", generator=g).bfloat16()
+        gy = torch.randn(n, 512, hw, hw, device="cuda", generator=g).bfloat16()
+        for d in (12, 18):
+            conv = torch.nn.Conv2d(2048, 512, 3, padding=d, dilation=d, bias=False).cuda()
+            with torch.no_grad():
+                conv.weight.normal_(0.0, (2048 * 9) ** -0.5, generator=g)
+            if not layers.tap_split_engages(conv, x):
+                problems.append(f"({n}, 2048, {hw}, {hw}) d={d}: conv2d does not split")
+                continue
+
+            def run(fn, dtype):
+                xi = x.to(dtype).requires_grad_()
+                y = fn(xi)
+                return (y,) + torch.autograd.grad(y, (xi, conv.weight), gy.to(dtype))
+
+            def split(xi):
+                return layers.conv2d(conv, xi, xi.dtype)
+
+            def plain(xi):
+                return F.conv2d(xi, conv.weight.to(xi.dtype), None, 1, d, d)
+
+            ours, cudnn = run(split, torch.bfloat16), run(plain, torch.bfloat16)
+            ref = run(plain, torch.float32)  # TF32 is off (phase 1)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run(split, torch.bfloat16)
+                synced = False
+            except RuntimeError:
+                synced = True
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            row = {"host_sync": synced,
+                   "us_split": cuda_ms(lambda: run(split, torch.bfloat16), iters=10) * 1e3,
+                   "us_cudnn": cuda_ms(lambda: run(plain, torch.bfloat16), iters=3) * 1e3}
+            for name, a, b, e in zip(TAP_SPLIT_NORM_RATIO, ours, cudnn, ref):
+                a, b, e = a.detach(), b.detach(), e.detach().float()
+                row[name] = {"max_abs_vs_cudnn": float((a.float() - b.float()).abs().max()
+                                                       / e.abs().max()),
+                             "norm_ratio": float((a.float() - e).norm() / (b.float() - e).norm()),
+                             "share_differing": float((a != b).float().mean())}
+                if (row[name]["max_abs_vs_cudnn"] > TAP_SPLIT_MAX_ABS
+                        or row[name]["norm_ratio"] > TAP_SPLIT_NORM_RATIO[name]):
+                    problems.append(f"({n}, 2048, {hw}, {hw}) d={d} {name}: {row[name]}")
+            if synced:
+                problems.append(f"({n}, 2048, {hw}, {hw}) d={d}: a host sync in the split")
+            key = f"{n}x2048x{hw}x{hw}_d{d}"
+            numbers[key] = row
+            parts = [f"{name} {row[name]['max_abs_vs_cudnn']:.2e} of the largest off cuDNN's, "
+                     f"{row[name]['norm_ratio']:.2f}x its distance from float32, "
+                     f"{row[name]['share_differing']:.3f} differing"
+                     for name in TAP_SPLIT_NORM_RATIO]
+            log(f"  {key}: split {row['us_split']:.0f} us, cuDNN {row['us_cudnn']:.0f} us a "
+                f"fwd+bwd; {'; '.join(parts)}; host sync: {synced}")
+    if problems:
+        raise SystemExit(f"phase 23: {'; '.join(problems)}")
+    return numbers
+
+
+def tap_split_alone() -> int:
+    """``--tap-split``: phase 1's device check and phase 23."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"device: {gpu_line()}; TF32 off")
+    log("the tap split against cuDNN's dilated convolution, bfloat16:")
+    numbers = check_tap_split()
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_tap_split.json"), "w") as f:
+        json.dump({"card": gpu_line(), "tap_split": numbers}, f, indent=1)
+    log(f"tap split: ok on {gpu_line()}")
+    return 0
+
+
 def compare_one() -> int:
     """In the tree that is the working directory (its ``cp2_tpu_torch``):
     phase 5's step, phases 16-17's runs and the bench's device-only rate;
@@ -4351,6 +4464,10 @@ def main() -> int:
     # phase 22: the gate's corpus on the card, and bfloat16 bias rounding
     log("the gate's corpus against its committed digests, and bfloat16 bias rounding:")
     corpus = check_corpus_and_rounding()
+
+    # phase 23: the tap split against cuDNN's dilated convolution
+    log("the tap split against cuDNN's dilated convolution, bfloat16:")
+    tap_split = check_tap_split()
     with open(os.path.join("chiprun_out", "chip_smoke_step.json"), "w") as f:
         json.dump({"card": card, **step, "step_launches": step_launches,
                    "augment": aug_ms, "cli": cli, "variant_step_launches": variant_launches,
@@ -4359,7 +4476,7 @@ def main() -> int:
                    "mirror_cli": mirror_cli, "inference_serving": serve,
                    "iter_narrow": iter_narrow, "iter_cli": iter_cli, "dist": dist,
                    "scripts": scripts, "tools": tools, "quality_gate": gate,
-                   "corpus_and_rounding": corpus,
+                   "corpus_and_rounding": corpus, "tap_split": tap_split,
                    "kernel_times_by_shape": flagship["by_shape"]}, f,
                   indent=1)
     log(f"  per-run numbers in chiprun_out/chip_smoke_step.json; on {gpu_line()}")
@@ -4436,4 +4553,6 @@ if __name__ == "__main__":
         sys.exit(compare_one())
     if len(sys.argv) == 2 and sys.argv[1] == PREFLIGHT:
         sys.exit(preflight())
+    if len(sys.argv) == 2 and sys.argv[1] == TAP_SPLIT:
+        sys.exit(tap_split_alone())
     sys.exit(main())

@@ -10,9 +10,12 @@ Port of ``cp2_tpu/models/layers.py``.  What carries over, and what does not:
 * The dtype policy of ``layers.py:39-47,279``: a conv runs in ``dtype``
   (weights kept in float32 and cast per call), BatchNorm computes in
   float32, and each ``ConvModule`` returns ``dtype``.
-* ``DilatedConv3x3`` and ``SpaceToDepthConv`` are exact TPU rewrites of a
-  plain conv (tap-split dilated conv, space-to-depth stem); here both are
-  the one ``nn.Conv2d`` named ``conv``, so bridged weights load unchanged.
+* ``SpaceToDepthConv`` is an exact TPU rewrite of the stem's plain conv;
+  here the stem is the one ``nn.Conv2d`` named ``conv``.  ``DilatedConv3x3``
+  has a counterpart: ``conv2d`` runs a stride-1 3x3 'same' convolution
+  whose dilation is large against its grid as the sum of its in-bounds
+  taps (``tap_split_engages``), on the same ``nn.Conv2d`` parameter, so
+  bridged weights and checkpoints load unchanged either way.
 * "BN" and "SyncBN" are the same module, as in the JAX package, where
   global-view ``jit`` makes every BatchNorm's statistics cover the global
   batch.  On one process they do anyway; with a process group of W > 1
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cp2_tpu_torch.parallel import collectives
+from cp2_tpu_torch.utils.profiling import span
 
 FLAX_BN_MOMENTUM = 0.9  # weight of the old running stat (flax convention)
 BN_EPS = 1e-5
@@ -183,12 +187,175 @@ def _rounds_before_bias(dtype: torch.dtype) -> bool:
     return torch.finfo(dtype).bits < 32
 
 
+TAP_SPLITS = {"split": 0, "plain": 0}  # convolutions through ``conv2d``, by path
+
+
+def reset_tap_split_counts() -> None:
+    for key in TAP_SPLITS:
+        TAP_SPLITS[key] = 0
+
+
+def tap_split_engages(conv: nn.Conv2d, x: torch.Tensor) -> bool:
+    """Whether ``conv2d`` runs ``conv`` on ``x`` as the sum of its in-bounds
+    taps: a dilated (d ≥ 2, as ``DilatedConv3x3``'s rule also asks)
+    stride-1 3x3 convolution with 'same' zero padding whose dilation
+    reaches half its grid or more (``2·d ≥ H`` or ``2·d ≥ W``).  At d = 1
+    that would take only grids of 2 or less, where it saves nothing.
+
+    There an off-centre tap reads the image only in a band of at most
+    ``H − d`` rows or ``W − d`` columns, and reads padding elsewhere:
+    at the ASPP's 14x14 grid d = 18 leaves only the centre tap and d = 12
+    bands of 2 rows or columns; at 22x22, bands of 4 (d = 18) and 10
+    (d = 12).  cuDNN's dilated kernels work through the padding (its
+    generic ``dgrad_engine`` and ``wgrad_alg1_engine`` at 5-6 useful
+    TFLOP/s); 1x1 convolutions over the bands skip it.  d = 6 at 14x14
+    (bands of 8) stays on cuDNN's dilated path, which runs it fast, and so
+    do the backbone's d = 2 convolutions at the model's grids."""
+    if (conv.kernel_size != (3, 3) or conv.stride != (1, 1) or conv.groups != 1
+            or conv.padding_mode != "zeros" or x.dim() != 4):
+        return False
+    dy, dx = conv.dilation
+    if conv.padding != (dy, dx) or min(dy, dx) < 2:
+        return False
+    return 2 * dy >= x.shape[-2] or 2 * dx >= x.shape[-1]
+
+
+def _band(size: int, offset: int):
+    """(output, input) slices of one axis where a tap at ``offset`` reads
+    inside the input (output ``i`` reads input ``i + offset``), or None."""
+    lo, hi = max(0, -offset), size - max(0, offset)
+    return (slice(lo, hi), slice(lo + offset, hi + offset)) if hi > lo else None
+
+
+def _off_centre_taps(h: int, w: int, dilation):
+    """``(tap, out_rows, out_cols, in_rows, in_cols)`` of each off-centre tap
+    of a 3x3 'same' convolution that reads inside an ``h`` x ``w`` input,
+    ``tap`` its index ``3·row + column``; a tap that reads only padding is
+    left out."""
+    dy, dx = dilation
+    taps = []
+    for ti in range(3):
+        for tj in range(3):
+            rows, cols = _band(h, (ti - 1) * dy), _band(w, (tj - 1) * dx)
+            if (ti, tj) != (1, 1) and rows and cols:
+                taps.append((3 * ti + tj, rows[0], cols[0], rows[1], cols[1]))
+    return taps
+
+
+def _band_layout(band: torch.Tensor) -> torch.Tensor:
+    """A band of rows or columns as its 1x1 convolution should get it: on
+    the card, a channels-last copy, which cuDNN runs as one product per
+    pass, in GEMM kernels (cuBLASLt's ``nvjet_*``, CUTLASS) whose names are
+    not a convolution's.  An NCHW band costs it transposes and, for the
+    weight gradient, a float32 reduction over the batch: at the
+    pretrain's d = 12 on an H100, one forward and backward took 3.28
+    against 1.37 ms of device time and held 369 against 152 MiB above its
+    operands.  Elsewhere the band stays as it is (oneDNN's channels-last
+    backward corrupts this CPU build's heap at 1x1 and 2x2 maps)."""
+    return band.contiguous(memory_format=torch.channels_last) if band.is_cuda else band
+
+
+def _conv_backward(grad, x, weight, mask):
+    """Both gradients of a bias-free 1x1 convolution, as ``mask`` asks."""
+    gx, gw, _ = torch.ops.aten.convolution_backward(
+        grad, x, weight, None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask + [False])
+    return gx, gw
+
+
+class _TapSplitConv3x3(torch.autograd.Function):
+    """A stride-1 3x3 'same' convolution as the sum of its in-bounds taps.
+
+    The centre tap is a 1x1 convolution over the whole grid.  Each other
+    tap of ``_off_centre_taps`` is a 1x1 convolution of the input rows and
+    columns it reads, added into the band of the output it reaches; a tap
+    that reads only padding runs nothing.  The bands go to cuDNN
+    channels-last (``_band_layout``).  Each piece comes back rounded to the
+    input's dtype; the forward adds them in a float32 copy of the output
+    and rounds the sum again, so below float32 an output element that the
+    centre and ``k`` ≥ 1 other taps reach is rounded ``k + 2`` times where
+    cuDNN's dilated kernel rounds once (in bfloat16 on an H100 the output
+    lies 1.18-1.23 times as far from float32 as cuDNN's).
+
+    The backward runs each piece's ``convolution_backward`` (the input's
+    and the weight's gradient in one call) and adds the input gradient of
+    each band into the centre's in place, one band at a time.  Below
+    float32 that add rounds too: an element that ``k`` other taps read is
+    rounded ``2k + 1`` times (1.10-1.15 times cuDNN's distance from
+    float32 on an H100).  A float32 accumulator would be the size of the
+    input (C_in = 2048 channels: 103 MB at the pretrain's (64, 14, 14),
+    2 % of its step's peak), alive near the top of the backward, where the
+    step's activations are; the forward's is the output's size (C_out =
+    512).  Summing each output region's taps in one 1x1 convolution over
+    their windows concatenated by channel rounds once, forward and
+    backward, but it launches more (a copy a window): at the pretrain's
+    d = 12 on an H100, 133 kernels and 2.02 ms of card time a forward and
+    backward against these pieces' 90 and 1.35 ms.  Each weight gradient
+    is one product, rounded once; a tap that reads only padding gets
+    exactly zero.
+
+    It saves what the plain convolution saves: the input, and the weight
+    in the input's dtype (laid out tap by tap, ``(9, C_out, C_in, 1, 1)``).
+    The pieces are ``aten.convolution`` and ``aten.convolution_backward``
+    calls on the (output, tap) pairs that read inside the input, so a FLOP
+    count under XLA's rule (``utils/flops.py``) is the plain convolution's,
+    integer for integer.  Every slice is fixed by the shapes: no host sync.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, dilation):
+        cout, cin = weight.shape[:2]
+        taps = weight.permute(2, 3, 0, 1).to(x.dtype, memory_format=torch.contiguous_format)
+        taps = taps.reshape(9, cout, cin, 1, 1)
+        ctx.save_for_backward(x, taps)
+        ctx.dilation, ctx.weight_dtype = dilation, weight.dtype
+        y = F.conv2d(x, taps[4])
+        bands = _off_centre_taps(x.shape[-2], x.shape[-1], dilation)
+        if not bands:
+            return y
+        acc = y.to(torch.promote_types(y.dtype, torch.float32))
+        del y
+        for tap, out_r, out_c, in_r, in_c in bands:
+            acc[:, :, out_r, out_c].add_(F.conv2d(_band_layout(x[:, :, in_r, in_c]), taps[tap]))
+        return acc.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, taps = ctx.saved_tensors
+        mask = list(ctx.needs_input_grad[:2])
+        with span("model.tap_split"):
+            gx, gw_centre = _conv_backward(grad, x, taps[4], mask)
+            gws = {4: gw_centre}
+            for tap, out_r, out_c, in_r, in_c in _off_centre_taps(x.shape[-2], x.shape[-1],
+                                                                  ctx.dilation):
+                gxt, gws[tap] = _conv_backward(_band_layout(grad[:, :, out_r, out_c]),
+                                               _band_layout(x[:, :, in_r, in_c]), taps[tap], mask)
+                if mask[0]:
+                    gx[:, :, in_r, in_c].add_(gxt)
+            gweight = None
+            if mask[1]:
+                zero = gw_centre.new_zeros(()).expand_as(gw_centre)
+                gweight = torch.stack([gws.get(i, zero) for i in range(9)], -1)
+                gweight = gweight.view(taps.shape[1:3] + (3, 3)).to(ctx.weight_dtype)
+        return gx, gweight, None
+
+
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Run ``conv`` in ``dtype`` with its float32 weights cast per call; the
-    bias is added where flax adds it (``_rounds_before_bias``)."""
+    bias is added where flax adds it (``_rounds_before_bias``).  Where
+    ``tap_split_engages``, the convolution runs as the sum of its in-bounds
+    taps (``_TapSplitConv3x3``, inside the span ``model.tap_split``), and
+    its bias, if any, is added after; ``TAP_SPLITS`` counts the calls on
+    each path."""
     bias = None if conv.bias is None else conv.bias.to(dtype)
+    x = x.to(dtype)
+    if tap_split_engages(conv, x):
+        TAP_SPLITS["split"] += 1
+        with span("model.tap_split"):
+            y = _TapSplitConv3x3.apply(x, conv.weight, conv.dilation)
+        return y if bias is None else y + bias.view(1, -1, 1, 1)
+    TAP_SPLITS["plain"] += 1
     split = bias is not None and _rounds_before_bias(dtype)
-    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None if split else bias, conv.stride,
+    y = F.conv2d(x, conv.weight.to(dtype), None if split else bias, conv.stride,
                  conv.padding, conv.dilation)
     return y + bias.view(1, -1, *([1] * (y.dim() - 2))) if split else y
 

@@ -23,7 +23,10 @@ and cudnn determinism toggles):
     ``finetune.confusion``;
   - ``augment.pretrain`` and ``augment.finetune`` (``augment/pipeline.py``);
   - ``data.wait`` (``data/prefetch.py``): the consumer blocked on the next
-    prefetched item.
+    prefetched item;
+  - ``model.tap_split`` (``models/layers.py``): the forward, and apart the
+    backward, of each convolution that ``conv2d`` runs as the sum of its
+    in-bounds taps (the ASPP's d = 12 and d = 18 at 14x14 and 22x22).
 * ``StepTimer`` — wall-clock step statistics with p50/p90; ``stop(probe)``
   first synchronises the probe tensor's device, as the JAX timer blocks on
   its probe, so ``--use_profiler`` times a loop held in lockstep with the

@@ -6,7 +6,7 @@ The model is the flagship CP2 *structure* — dilated ResNet-50 (strides
 dilations 1,6,12,18 and the ``contrast_conv`` projector — at narrow widths
 (stem/base channels 8, head channels 16, contrast dim 16) and 64x64 inputs,
 whose 4x4 feature grid sends the JAX side through its ``DilatedConv3x3``
-rewrite.  Weights and data come from numpy with a seed and go to both sides
+rewrite and the port through its tap split of the same convolutions.  Weights and data come from numpy with a seed and go to both sides
 as numpy arrays.
 """
 

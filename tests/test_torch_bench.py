@@ -308,14 +308,21 @@ def test_bench_dense_loss_on_the_cpu(capsys):
 
 
 def test_bench_dilated_conv_on_the_cpu(capsys):
-    out = bench_dilated_conv.run("cpu", n=2, hw=14, cin=8, cout=4, dilations=(6, 12), steps=1)
-    # 2 dilations x 2 layouts, one untimed call and one timed each
-    assert _launches(capsys.readouterr().out) == {"steps": 2 * 2 * 2, **NO_KERNEL}
+    out = bench_dilated_conv.run("cpu", shapes=((2, 14), (1, 22)), cin=8, cout=4,
+                                 dilations=(6, 12, 18), steps=1)
+    # 2 shapes x 3 dilations x 2 paths, one untimed call and one timed each
+    assert _launches(capsys.readouterr().out) == {"steps": 2 * 3 * 2 * 2, **NO_KERNEL}
     # the JAX docstring's useful shares at 14x14: d=6 ~51 %, d=12 ~18 %
-    assert out["by_dilation"]["6"]["useful_share"] == pytest.approx(0.5102, abs=1e-4)
-    assert out["by_dilation"]["12"]["useful_share"] == pytest.approx(0.1837, abs=1e-4)
-    for row in out["by_dilation"].values():
-        assert row["nchw"]["us"] > 0 and row["channels_last"]["us"] > 0
+    rows = out["by_shape"]["2x14x14"]
+    assert rows["6"]["useful_share"] == pytest.approx(0.5102, abs=1e-4)
+    assert rows["12"]["useful_share"] == pytest.approx(0.1837, abs=1e-4)
+    # conv2d splits d = 12 and 18 at both grids, and leaves d = 6 plain
+    assert {(shape, d): row["engages"] for shape, by_d in out["by_shape"].items()
+            for d, row in by_d.items()} == {
+        (shape, d): d != "6" for shape in ("2x14x14", "1x22x22") for d in ("6", "12", "18")}
+    for by_d in out["by_shape"].values():
+        for row in by_d.values():
+            assert row["plain"]["us"] > 0 and row["split"]["us"] > 0 and row["split_speedup"] > 0
 
 
 @pytest.mark.parametrize("task", ["pretrain", "finetune"])

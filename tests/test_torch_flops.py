@@ -14,7 +14,11 @@ under XLA's rules.  Held here:
   port's count leaves out; torch's default formulas count taps that read
   padding and land more than 30 % above, which shows the rule in force;
 * the dense pair loss counts by its formula on the CPU route and on the
-  meta device, and a step's count does not depend on the route.
+  meta device, and a step's count does not depend on the route;
+* a convolution that ``models/layers.py`` splits into its in-bounds taps,
+  and the flagship pretrain and finetune steps that split their ASPP's
+  d = 12 and d = 18 convolutions, count what they count on the plain
+  path, integer for integer.
 """
 
 import itertools
@@ -155,8 +159,11 @@ def flagship_xla():
     return _xla_flops(fn, *args), out
 
 
-def test_flagship_forward_count_within_5_percent_below_xla(flagship_xla):
+def test_flagship_forward_count_within_5_percent_below_xla(flagship_xla, monkeypatch):
+    from torch.utils.flop_counter import FlopCounterMode
+
     from cp2_tpu_torch.graft_entry import entry
+    from cp2_tpu_torch.models import layers
 
     xla, _ = flagship_xla
     fn, args = entry(device="meta")
@@ -164,12 +171,76 @@ def test_flagship_forward_count_within_5_percent_below_xla(flagship_xla):
     # XLA counts elementwise work too (BatchNorm, ReLU, the residual adds):
     # the port's count lies below it, by 4.1 % on this forward
     assert 0.95 * xla <= ours < xla, (ours, xla)
-    from torch.utils.flop_counter import FlopCounterMode
-
     with FlopCounterMode(display=False) as default:
         fn(*args)
-    # torch's default conv formula counts the taps that read padding
+    # torch's default conv formula counts the taps that read padding; the
+    # tap split runs none at d = 12 and 18, but d = 6 still reads some
+    assert default.get_total_flops() > ours
+    # every convolution on cuDNN's plain path: the same count under XLA's
+    # rule, and the default formula over every tap lands 30 % above XLA's
+    monkeypatch.setattr(layers, "tap_split_engages", lambda conv, x: False)
+    _, plain = flops.count_flops(fn, *args)
+    assert plain == ours
+    with FlopCounterMode(display=False) as default:
+        fn(*args)
     assert default.get_total_flops() > 1.3 * xla
+
+
+TAP_SPLIT_CONVS = [(14, 14, 12), (14, 14, 18), (22, 22, 12), (22, 22, 18), (9, 30, 12),
+                   (5, 5, 12)]
+
+
+@pytest.mark.parametrize("h,w,dilation", TAP_SPLIT_CONVS,
+                         ids=[f"{h}x{w}d{d}" for h, w, d in TAP_SPLIT_CONVS])
+def test_tap_split_conv_counts_as_the_plain_conv(h, w, dilation):
+    """A convolution that ``models/layers.py::conv2d`` splits into its
+    in-bounds taps counts, forward and with both gradients, what the plain
+    convolution counts under XLA's rule, integer for integer: its pieces
+    are the (output, tap) pairs that read inside the input."""
+    from cp2_tpu_torch.models import layers
+
+    conv = torch.nn.Conv2d(8, 4, 3, padding=dilation, dilation=dilation, bias=False)
+    x = torch.zeros((2, 8, h, w), requires_grad=True)
+    assert layers.tap_split_engages(conv, x)
+
+    def fwd_and_grads(run):
+        y = run()
+        return torch.autograd.grad(y, (x, conv.weight), torch.zeros_like(y))
+
+    def split():
+        return layers.conv2d(conv, x, torch.float32)
+
+    def plain():
+        return torch.nn.functional.conv2d(x, conv.weight, None, 1, dilation, dilation)
+
+    with torch.no_grad():
+        assert flops.count_flops(split)[1] == flops.count_flops(plain)[1]
+    assert flops.count_flops(fwd_and_grads, split)[1] == \
+        flops.count_flops(fwd_and_grads, plain)[1]
+
+
+@pytest.mark.parametrize("task", ["pretrain", "finetune"])
+def test_tap_split_keeps_the_step_count(task, monkeypatch):
+    """The flagship pretrain step (``config_pretrain.py``, 224², whose ASPP
+    splits d = 12 and 18 at 14x14 in the query and the key forward) and the
+    finetune step (``config_finetune.py``, 352², 22x22), counted on the
+    meta device, count what they counted with every convolution on the
+    plain path, integer for integer."""
+    from cp2_tpu_torch.models import layers
+    from cp2_tpu_torch.tools import bench_finetune, bench_pretrain_variant
+    from cp2_tpu_torch.utils.benchmarking import model_config
+
+    def count():
+        if task == "pretrain":
+            return bench_pretrain_variant.step_flops(model_config("config_pretrain.py"), "CP2",
+                                                     "DEEPLABV3", 2, 224, augment=False)
+        return bench_finetune.step_flops(model_config("config_finetune.py"), 2, 2, 352)
+
+    layers.reset_tap_split_counts()
+    split = count()
+    assert layers.TAP_SPLITS["split"] == (4 if task == "pretrain" else 2)
+    monkeypatch.setattr(layers, "tap_split_engages", lambda conv, x: False)
+    assert count() == split
 
 
 def _dense_inputs(n=2, s2=36, c=8, seed=0):

@@ -4,9 +4,10 @@ Bridged weights, the flagship structure at narrow widths (see
 ``_torch_port_common``), float32, train and eval mode.  In train mode the
 BatchNorm running statistics both sides write back are pinned too.  At
 the 4x4 feature grid the JAX side runs its ``DilatedConv3x3`` tap
-decomposition (ASPP and the dilated layer4) and, in eval mode, its
-``SpaceToDepthConv`` stem, so these tests also pin both rewrites against
-the plain ``nn.Conv2d``.
+decomposition (ASPP and the dilated layer4), and the port its own tap
+split of the same convolutions (``models/layers.py::tap_split_engages``),
+and in eval mode the JAX side runs its ``SpaceToDepthConv`` stem against
+the port's plain ``nn.Conv2d``, so these tests also pin the rewrites.
 
 Tolerance: rtol 1e-4, with an absolute floor of 1e-4 of the largest
 magnitude of the same array (``assert_close``).
