@@ -39,6 +39,35 @@ def test_a_broken_step_is_not_correct(tmp_path, name, fault):
     sound = checks.readings(*_sides(_cell(name, tmp_path)))
     assert any(result["checks"][k]["value"] > 3 * sound[k] for k in failed), (failed, sound)
     assert {"loss", "grad", "change"} <= set(result["checks"]) <= set(limits)
+    if fault == "ema_skipped":
+        assert "ema" in failed
+
+
+def _ema_sides(program_moves: bool):
+    """Two key leaves: ``bn`` near 1, whose reference moves one element by
+    one float32 ulp; ``conv`` near 0.01, moving by about 1e-5 on both sides
+    (or, with ``program_moves`` false, not at all on the program's)."""
+    p0 = {"bn": torch.ones(64) * 0.75, "conv": torch.full((64,), 0.01)}
+    ulp = float(torch.nextafter(torch.tensor(0.75), torch.tensor(1.0)) - 0.75)
+    grad = {k: torch.ones(64) for k in p0}
+    ref_ema = {"bn": p0["bn"].clone(), "conv": p0["conv"] + 1e-5}
+    ref_ema["bn"][3] += ulp
+    prog_ema = {"bn": p0["bn"].clone(),
+                "conv": p0["conv"] + (1e-5 + 1e-9 if program_moves else 0.0)}
+    ref = checks.side([1.0], grad, p0, p0, ema=ref_ema)
+    prog = checks.side([1.0], grad, p0, p0, ema=prog_ema)
+    return prog, ref
+
+
+def test_ema_leaves_a_move_of_one_ulp_out():
+    """The one-ulp leaf would read 1 by itself; it is left out of ``ema``,
+    and the leaf that moves is still compared."""
+    prog, ref = _ema_sides(program_moves=True)
+    assert checks.moving_leaves(ref, {"bn", "conv"}) == {"conv"}
+    assert checks.readings(prog, ref)["ema"] < 1e-3
+    assert checks.leaf_gaps(prog["ema"], ref["ema"], {"bn"})["bn"] == pytest.approx(1.0)
+    prog, ref = _ema_sides(program_moves=False)
+    assert checks.readings(prog, ref)["ema"] == pytest.approx(1.0)
 
 
 def _sides(cell):

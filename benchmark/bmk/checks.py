@@ -13,7 +13,13 @@ and inputs.  The numbers a configuration's ``limits`` name are compared:
   leaving out the leaves whose reference gradient is under a thousandth of
   the median leaf's (nought to rounding: they move by round-off alone);
 * ``ema`` (CP2): the key encoder's move over the three steps (the EMA of
-  the query encoder, from the same start), the same way as ``change``;
+  the query encoder, from the same start), the same way as ``change``,
+  leaving out also the leaves whose reference move is under ``EMA_ULPS``
+  float32 ulps of their values (by the norms of the move and of the
+  leaf's ulps, each element's at the larger of its start and its end): a
+  key moves a thousandth of the query's step, about one ulp of most
+  weights, and there whether an element moves by one ulp or none is
+  decided by the last bits of the gradient;
 * ``loader`` (cells fed from files): the largest difference between the
   loader's decoded uint8 batches and the reference's own decoding.
 
@@ -34,6 +40,7 @@ from typing import Dict, Optional
 import torch
 
 ZERO_GRAD = 1e-3  # a leaf's gradient under this share of the median leaf's counts as nought
+EMA_ULPS = 4.0  # a key leaf's move under this many float32 ulps of its values is rounding
 
 
 def host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -89,6 +96,21 @@ def kept_leaves(ref: dict):
     return {k for k, v in n.items() if v >= ZERO_GRAD * med and v > 0}
 
 
+def ulp_norm(values: torch.Tensor) -> float:
+    """The norm of the float32 ulps of ``values``: the spacing of float32
+    at each element's magnitude."""
+    a = values.detach().to("cpu", torch.float32).abs()
+    return float(torch.linalg.vector_norm((torch.nextafter(a, torch.full_like(a, math.inf))
+                                           - a).double()))
+
+
+def moving_leaves(ref: dict, keep) -> set:
+    """Of ``keep``, the key encoder's leaves whose reference move is at
+    least ``EMA_ULPS`` float32 ulps of their values."""
+    return {k for k in keep if k in ref["ema"] and float(torch.linalg.vector_norm(
+        ref["ema"][k])) >= EMA_ULPS * ref["ema_ulp"][k]}
+
+
 def _rel(p: float, r: float) -> float:
     return abs(p - r) / max(abs(r), 1e-30) if math.isfinite(p) else math.inf
 
@@ -108,7 +130,7 @@ def readings(prog: dict, ref: dict) -> Dict[str, float]:
     keep = kept_leaves(ref)
     pairs = [("grad", "grad0", None), ("change", "change", keep)]
     if "ema" in ref and "ema" in prog:
-        pairs.append(("ema", "ema", keep))
+        pairs.append(("ema", "ema", moving_leaves(ref, keep)))
     for name, key, kept in pairs:
         values = list(leaf_gaps(prog[key], ref[key], kept).values())
         bad = not all(math.isfinite(v) for v in values)
@@ -133,7 +155,8 @@ def side(loss, grad0: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
          p0: Dict[str, torch.Tensor], ema: Optional[Dict[str, torch.Tensor]] = None) -> dict:
     """One side's readings, on the host: its losses, its first gradient and
     each leaf's change from ``p0`` to ``params`` (and to ``ema``, the key
-    encoder, where there is one), in float64."""
+    encoder, where there is one, with the norm of each leaf's float32
+    ulps at the larger magnitude of its start and its end), in float64."""
     def moved(to):
         return {k: host_copy(v).double() - host_copy(p0[k]).double() for k, v in to.items()}
 
@@ -142,4 +165,7 @@ def side(loss, grad0: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
            "change": moved(params)}
     if ema is not None:
         out["ema"] = moved(ema)
+        out["ema_ulp"] = {k: ulp_norm(torch.maximum(host_copy(p0[k]).abs(),
+                                                    host_copy(v).abs()))
+                          for k, v in ema.items()}
     return out

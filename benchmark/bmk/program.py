@@ -1,12 +1,17 @@
 """What the program's own spans show in a traced run: host dispatch,
 kernels and host syncs per train step, read from a ``trace.Reading``.
 
-The program (``cp2_tpu_torch/utils/profiling.py::span``) names its train
-steps by phase (``pretrain.*``, ``finetune.*``), its augmentations
-(``augment.pretrain``, ``augment.finetune``) and the prefetcher's wait
-(``data.wait``).  The step-level window is the union of the host
-intervals of ``pretrain.step``, ``finetune.step`` and ``augment.finetune``
-(``augment.pretrain`` runs inside ``pretrain.step``).  Step ``i`` is what
+The program's spans are the ``user_annotation`` events of the trace
+whose names are dotted lower-case words (``PROGRAM_SPAN``), which leaves
+out the benchmark's own (``trace.SPANS``, no dot) and PyTorch's
+(``Optimizer.step#SGD.step``); their names are read from the trace, not
+from a list.  The program (``cp2_tpu_torch/utils/profiling.py::span``)
+names its train steps by phase (``pretrain.step``, ``finetune.step``: any
+span named ``*.step``), its augmentations (``augment.*``), the
+prefetcher's wait (``data.wait``) and its model's parts (``model.*``).
+The step-level window is the union of the host intervals of the
+``*.step`` and ``augment.*`` spans (``augment.pretrain`` runs inside
+``pretrain.step``).  Step ``i`` is what
 the window holds after step ``i - 1``'s step span ended, up to the end of
 its own: a finetune step's augmentation goes with the step that follows.
 
@@ -15,20 +20,17 @@ backward's launches come from the autograd engine's thread while the
 main thread waits in ``pretrain.backward``.  A kernel counts where its
 launch (``Reading.launch_ts``) lies; a sync call where it starts.
 
-The readers need the trace's events, and ``trace.Reading`` keeps only
-the device events, the launch times and the benchmark's own spans.  They
-read the list ``events`` of a Reading that carries one (a line
-``self.events = events`` in ``Reading.__init__`` would give it) and read
-``None`` on a Reading without it, as the harness makes today: no metric
-reads them yet.  A trace without the program's step spans (a program that
-has none) reads ``None`` too.  The first reading of a run also prints, to
-standard error, the idle device ms per step by the innermost program span
-the host was in when each gap began (``trace.Reading.host_at``'s rule).
+A trace without step spans (a program that has none) reads ``None``.
+The first reading of a run also prints, to standard error, the idle
+device ms per step by the innermost program span the host was in when
+each gap began (``trace.Reading.host_at``'s rule).
 """
 
 from __future__ import annotations
 
 import bisect
+import fnmatch
+import re
 import statistics
 import sys
 from collections import Counter
@@ -36,15 +38,9 @@ from typing import Dict, List, Optional, Tuple
 
 from bmk import trace
 
-STEP_SPANS = ("pretrain.step", "finetune.step")
-WINDOW_SPANS = STEP_SPANS + ("augment.finetune",)
-AUGMENT_SPANS = ("augment.pretrain", "augment.finetune")
-SPANS = WINDOW_SPANS + (
-    "augment.pretrain", "data.wait",
-    "pretrain.ema", "pretrain.key_forward", "pretrain.objective", "pretrain.backward",
-    "pretrain.grad_reduce", "pretrain.optimizer", "pretrain.enqueue", "pretrain.metrics",
-    "finetune.forward", "finetune.backward", "finetune.grad_reduce", "finetune.optimizer",
-    "finetune.confusion")
+PROGRAM_SPAN = re.compile(r"[a-z0-9_]+(\.[a-z0-9_]+)+")
+STEP_SPANS = "*.step"
+AUGMENT_SPANS = "augment.*"
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
          "cudaMemcpy", "cuStreamSynchronize", "cuCtxSynchronize", "cuEventSynchronize")
 
@@ -53,19 +49,13 @@ class Steps:
     """The program's steps in one reading: the window, and per step the
     kernels launched and the sync calls made inside it."""
 
-    def __init__(self, r: "trace.Reading", events: List[dict]):
-        self.spans: Dict[str, List[Tuple[float, float]]] = {n: [] for n in SPANS}
-        syncs = []
-        for e in events:
-            name = e.get("name")
-            if e.get("cat") == "user_annotation" and name in self.spans:
-                self.spans[name].append((e["ts"], e["ts"] + e["dur"]))
-            elif e.get("cat") in trace.LAUNCH_CATS and name in SYNCS:
-                syncs.append((e["ts"], e["ts"] + e["dur"], name))
-        for v in self.spans.values():
-            v.sort()
-        self.ends = sorted(e for n in STEP_SPANS for _, e in self.spans[n])
-        self.window = trace._union([iv for n in WINDOW_SPANS for iv in self.spans[n]])
+    def __init__(self, r: "trace.Reading"):
+        self.spans: Dict[str, List[Tuple[float, float]]] = {
+            n: v for n, v in r.spans.items() if PROGRAM_SPAN.fullmatch(n)}
+        syncs = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in r.calls
+                 if e.get("name") in SYNCS]
+        self.ends = sorted(e for _, e in self._matching(STEP_SPANS))
+        self.window = trace._union(self._matching(STEP_SPANS) + self._matching(AUGMENT_SPANS))
         self._starts = [s for s, _ in self.window]
         n = len(self.ends)
         self.kernels, self.syncs = [0] * n, [0] * n
@@ -82,6 +72,10 @@ class Steps:
         self.sync_s = sum(e - s for s, e in trace._union(held)) / 1e6
         self.window_s = sum(e - s for s, e in self.window) / 1e6
 
+    def _matching(self, pattern: str) -> List[Tuple[float, float]]:
+        return [iv for n, v in self.spans.items() if fnmatch.fnmatchcase(n, pattern)
+                for iv in v]
+
     def _in_window(self, ts: float) -> Optional[Tuple[float, float]]:
         i = bisect.bisect_right(self._starts, ts) - 1
         if i >= 0 and ts <= self.window[i][1]:
@@ -95,19 +89,6 @@ class Steps:
             return False
         per_step[i] += 1
         return True
-
-    def device_s(self, r: "trace.Reading", names) -> float:
-        """Device seconds of the kernels, copies and memsets launched inside
-        spans of ``names`` (as ``trace.Reading.span_device_s``)."""
-        spans = trace._union([iv for n in names for iv in self.spans[n]])
-        starts = [a for a, _ in spans]
-        total = 0.0
-        for e in r.kernels:
-            ts = r.launch_ts.get(e.get("args", {}).get("correlation"))
-            i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
-            if i >= 0 and ts <= spans[i][1]:
-                total += e["dur"]
-        return total / 1e6
 
     def idle_ms_per_step(self, r: "trace.Reading", steps: int) -> Dict[str, float]:
         """Idle device ms per step, by the innermost program span the host
@@ -134,12 +115,9 @@ class Steps:
 
 def steps_of(r) -> Optional[Steps]:
     """The reading's ``Steps``, made once (and the idle line printed), or
-    ``None`` without the trace's events or the program's step spans."""
-    events = getattr(r, "events", None)
-    if events is None:
-        return None
+    ``None`` without the program's step spans."""
     if "_program_steps" not in r.__dict__:
-        s = Steps(r, events)
+        s = Steps(r)
         r._program_steps = s if s.ends else None
         if s.ends and r.steps:
             idle = s.idle_ms_per_step(r, r.steps)
@@ -150,7 +128,8 @@ def steps_of(r) -> Optional[Steps]:
                   f"{_tally(s.kernels)}); syncs {sum(s.syncs)} (by step {_tally(s.syncs)}, "
                   f"{s.sync_s / r.steps * 1e3:.3f} ms/step, {dict(s.sync_names)}); "
                   f"augment device ms/step "
-                  f"{s.device_s(r, AUGMENT_SPANS) / r.steps * 1e3:.4f}", file=sys.stderr)
+                  f"{r.device_s(spans=(AUGMENT_SPANS,)) / r.steps * 1e3:.4f}",
+                  file=sys.stderr)
     return r._program_steps
 
 

@@ -10,15 +10,30 @@ on the next staged batch), ``feed`` (a resident batch's gather),
 The kernel categories and the busy share (the union of the kernel,
 memcpy and memset intervals) are frozen from
 ``cp2_tpu_torch/tools/profile_step.py``.
+
+A ``Reading`` keeps the trace's host events (``events``) and puts each
+device event (kernel, memcpy, memset) to what launched it
+(``Reading.launches``): its launch call, found by ``args.correlation``;
+the chain of ``cpu_op`` events enclosing that call on the call's own
+thread (``aten::conv2d`` > ``aten::convolution`` > ... on the main
+thread, ``ConvolutionBackward0`` > ``aten::convolution_backward`` on the
+autograd engine's); and the ``user_annotation`` spans of any name that
+enclose the call on any thread, the benchmark's and the program's alike
+(the backward's launches come from the autograd engine's thread while the
+main thread waits in the program's backward span).  Readers then take
+device time by op or by span from patterns (``fnmatch``: ``model.*``,
+``aten::*convolution*``), with no list of names to extend.
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import fnmatch
 import json
 import os
-from typing import Dict, List, Optional, Tuple
+from collections import defaultdict
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 # kernel name fragment -> category, first match wins (names lower-cased)
 CATEGORIES = (
@@ -72,6 +87,68 @@ def profiled(on: bool, out_path: str):
     prof.export_chrome_trace(out_path)
 
 
+class Launch(NamedTuple):
+    """What launched one device event: the ``cpu_op`` names enclosing its
+    launch call on the call's thread and the spans enclosing the call on
+    any thread, each outermost first."""
+
+    ops: Tuple[str, ...]
+    spans: Tuple[str, ...]
+
+
+NOT_LAUNCHED = Launch((), ())  # a device event whose launch call the trace lacks
+
+
+def _chains(cpu_ops: List[dict], annotations: List[dict],
+            calls: Dict[int, dict]) -> Dict[int, Launch]:
+    """``Launch`` of each launch call of ``calls`` (by correlation id)."""
+    ops: Dict[int, Tuple[str, ...]] = {}
+    by_thread = defaultdict(list)
+    for e in cpu_ops:
+        by_thread[(e.get("pid"), e.get("tid"))].append((e["ts"], -e["dur"], 0, e["name"]))
+    for c, e in calls.items():
+        by_thread[(e.get("pid"), e.get("tid"))].append((e["ts"], -e["dur"], 1, c))
+    interned: Dict[tuple, tuple] = {}
+    for items in by_thread.values():
+        items.sort(key=lambda x: (x[0], x[1], x[2]))
+        stack: List[Tuple[float, str]] = []  # (end, name) of the open ops
+        for ts, neg_dur, is_call, what in items:
+            while stack and stack[-1][0] < ts:
+                stack.pop()
+            if is_call:
+                chain = tuple(name for _, name in stack)
+                ops[what] = interned.setdefault(chain, chain)
+            else:
+                stack.append((ts - neg_dur, what))
+    # spans of any thread: a sweep over time, the open spans widest first
+    marks = sorted([(e["ts"], 0, e["dur"], e["name"]) for e in annotations]
+                   + [(e["ts"], 1, 0.0, c) for c, e in calls.items()],
+                   key=lambda x: (x[0], x[1]))
+    open_: List[Tuple[float, float, str]] = []  # (width, end, name)
+    out: Dict[int, Launch] = {}
+    for ts, is_call, dur, what in marks:
+        if is_call:
+            open_ = [s for s in open_ if s[1] >= ts]
+            chain = tuple(name for _, _, name in sorted(open_, key=lambda s: -s[0]))
+            out[what] = Launch(ops.get(what, ()), interned.setdefault(chain, chain))
+        else:
+            open_.append((dur, ts + dur, what))
+    return out
+
+
+def _matcher(patterns: Iterable[str]):
+    """Whether any name of a chain matches any pattern, memoized by chain."""
+    patterns = tuple(patterns)
+    seen: Dict[tuple, bool] = {}
+
+    def match(chain: tuple) -> bool:
+        if chain not in seen:
+            seen[chain] = any(fnmatch.fnmatchcase(n, p) for n in chain for p in patterns)
+        return seen[chain]
+
+    return match
+
+
 def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
     out: List[Tuple[float, float]] = []
     for s, e in sorted(intervals):
@@ -84,27 +161,35 @@ def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
 
 
 class Reading:
-    """What one traced window shows: device intervals, kernels by name and
-    category, the spans and the kernels each launched."""
+    """What one traced window shows: the trace's complete events
+    (``events``), device intervals, kernels by name and category, the
+    spans, and what launched each kernel (``launches``)."""
 
     def __init__(self, path: str, steps: int, window_s: float, counts: dict,
                  peak: Optional[dict], images: int = 0):
         with open(path) as f:
             events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        self.events = events
         self.steps, self.window_s, self.counts, self.peak = steps, window_s, counts, peak
         self.images = images
-        self.kernels = [e for e in events if e.get("cat") in DEVICE_CATS]
-        self.spans: Dict[str, List[Tuple[float, float]]] = {n: [] for n in SPANS}
+        by_cat: Dict[Optional[str], List[dict]] = defaultdict(list)
         for e in events:
-            if e.get("cat") == "user_annotation" and e.get("name") in self.spans:
-                self.spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+            by_cat[e.get("cat")].append(e)
+        self.kernels = [e for c in DEVICE_CATS for e in by_cat[c]]
+        self.calls = [e for c in LAUNCH_CATS for e in by_cat[c]]  # launches, syncs, copies
+        self.spans: Dict[str, List[Tuple[float, float]]] = {n: [] for n in SPANS}
+        for e in by_cat["user_annotation"]:
+            self.spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
         for v in self.spans.values():
             v.sort()
-        self.launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
-                          if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
-        cpu = [e for e in events if e.get("cat") not in DEVICE_CATS]
-        self.t0 = min(e["ts"] for e in cpu) if cpu else 0.0
-        self.t1 = max(e["ts"] + e["dur"] for e in cpu) if cpu else 0.0
+        self._by_correlation = {e["args"]["correlation"]: e for e in self.calls
+                       if "correlation" in e.get("args", {})}
+        self.launch_ts = {c: e["ts"] for c, e in self._by_correlation.items()}
+        self._cpu_ops, self._annotations = by_cat["cpu_op"], by_cat["user_annotation"]
+        self._launches: Optional[List[Launch]] = None
+        host = [e for c, v in by_cat.items() if c not in DEVICE_CATS for e in v]
+        self.t0 = min(e["ts"] for e in host) if host else 0.0
+        self.t1 = max(e["ts"] + e["dur"] for e in host) if host else 0.0
         self.busy = _union([(e["ts"], e["ts"] + e["dur"]) for e in self.kernels])
 
     # -- device time ---------------------------------------------------------
@@ -115,22 +200,40 @@ class Reading:
     def category_s(self, label: str) -> float:
         return sum(e["dur"] for e in self.kernels if category(e["name"]) == label) / 1e6
 
-    def _inside(self, name: str, ts: float) -> bool:
-        spans = self.spans[name]
-        i = bisect.bisect_right(spans, (ts, float("inf"))) - 1
-        return i >= 0 and spans[i][0] <= ts <= spans[i][1]
+    # -- attribution ---------------------------------------------------------
+    @property
+    def launches(self) -> List[Launch]:
+        """``Launch`` of each of ``kernels``, in order, made on first use."""
+        if self._launches is None:
+            chains = _chains(self._cpu_ops, self._annotations, self._by_correlation)
+            self._launches = [chains.get(e.get("args", {}).get("correlation"), NOT_LAUNCHED)
+                              for e in self.kernels]
+        return self._launches
 
-    def span_device_s(self, name: str) -> float:
-        """Device seconds of the kernels launched inside spans of ``name``."""
-        total = 0.0
-        for e in self.kernels:
-            ts = self.launch_ts.get(e.get("args", {}).get("correlation"))
-            if ts is not None and self._inside(name, ts):
-                total += e["dur"]
-        return total / 1e6
+    def device_s(self, ops: Iterable[str] = (), spans: Iterable[str] = ()) -> float:
+        """Device seconds of the kernels, copies and memsets launched inside
+        an op whose name matches one of ``ops``, or inside a span whose
+        name matches one of ``spans`` (``fnmatch`` patterns); each counts
+        once, however many of them enclose its launch."""
+        by_op, by_span = _matcher(ops), _matcher(spans)
+        return sum(e["dur"] for e, l in zip(self.kernels, self.launches)
+                   if by_op(l.ops) or by_span(l.spans)) / 1e6
+
+    def device_by(self, part: str, top: int = 10) -> List[list]:
+        """Device seconds by the innermost span (``part="spans"``) or the
+        outermost op (``"ops"``) that launched them, most first; ``-``
+        where there is none."""
+        by: Dict[str, float] = defaultdict(float)
+        for e, l in zip(self.kernels, self.launches):
+            chain = getattr(l, part)
+            by[(chain[-1] if part == "spans" else chain[0]) if chain else "-"] += e["dur"]
+        return [[k[:120], v / 1e6] for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:top]]
 
     def span_host_s(self, name: str) -> float:
-        return sum(e - s for s, e in self.spans[name]) / 1e6
+        """Host seconds inside spans matching ``name``, on any thread; a
+        span inside another that matches counts once."""
+        hits = [iv for n, v in self.spans.items() if fnmatch.fnmatchcase(n, name) for iv in v]
+        return sum(e - s for s, e in _union(hits)) / 1e6
 
     # -- breakdown -----------------------------------------------------------
     def device_ops(self, top: int = 10) -> List[list]:

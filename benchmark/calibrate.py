@@ -13,7 +13,9 @@ side against the float32 reference, the side being:
   own rounding).
 
 One JSON line per mode and seed, with each side's losses and the worst
-leaves of the gradient, of the change and of the key encoder's move.
+leaves of the gradient, of the change and of the key encoder's move, and
+for each leaf the ``ema`` number could hold, the norms of its move on the
+two sides and of its float32 ulps (``checks.EMA_ULPS`` is set from them).
 ``--branch-scale`` reads the configuration with other scales of the
 residual branches' last BatchNorm (``init.branch_bn_scale``).  The
 benchmark's own runs never run this.
@@ -68,19 +70,11 @@ def reading(cell, mode: str) -> dict:
            "change_worst": worst(prog, ref, "change", keep),
            "left_out": sorted(set(ref["grad0"]) - keep)}
     if "ema" in prog and "ema" in ref:
-        # each worst leaf's move over float32's resolution of its weights
-        p0 = runner.capture["p0"] if "p0" in runner.capture else None
-        out["ema_worst"] = [
-            (v, k, resolution(ref["ema"][k], p0[k]) if p0 is not None else None)
-            for v, k in worst(prog, ref, "ema", keep)]
+        moving = checks.moving_leaves(ref, keep)
+        out["ema_worst"] = worst(prog, ref, "ema", moving)
+        out["ema_leaves"] = {k: [float(prog["ema"][k].norm()), float(ref["ema"][k].norm()),
+                                 ref["ema_ulp"][k]] for k in sorted(keep)}
     return out
-
-
-def resolution(move, p0) -> float:
-    """‖move‖ over (‖p0‖ + ‖move‖)·2^-24, float32's rounding of the
-    weights: near 1 or below, the move is rounding."""
-    m = move.double().norm()
-    return float(m / ((p0.double().norm() + m) * 2.0 ** -24).clamp_min(1e-300))
 
 
 def cli(argv=None) -> int:
